@@ -21,7 +21,9 @@ import torch
 from turbotpu.decoder.turbo import DecoderConfig as JaxConfig
 from turbotpu.decoder.turbo import turbo_decode as jax_decode
 from turbotpu_torch import DecoderConfig, turbo_decode
+import turbotpu_torch.golden.numpy_ref as tref
 from turbotpu_torch.convert import config_from_dict
+from turbotpu_torch.decoder.bucketing import grouped_perm_tables
 from turbotpu_torch.decoder.early_term import crc_ok_batch, make_crc_matrix
 from turbotpu_torch.decoder.turbo import get_siso
 from turbotpu_torch.harness.bench import (bench_decode, flagship_config,
@@ -103,6 +105,9 @@ def test_crc_ok_batch():
 
 
 @pytest.mark.parametrize("module", ["turbotpu_torch", "chip_smoke",
+                                    "turbotpu_torch.cli",
+                                    "turbotpu_torch.harness.ber",
+                                    "turbotpu_torch.configs.acceptance",
                                     "turbotpu_torch.harness.bench",
                                     "turbotpu_torch.convert"])
 def test_import_leaves_jax_out(module):
@@ -134,24 +139,47 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
     assert proc.returncode != 0 and proc.stdout == ""
 
 
-@pytest.mark.parametrize("cfg_kw,call_kw,what", [
-    (dict(interleaver="umts"), {}, "interleaver"),
-    (dict(siso="cuda", mode="maxlog", fold_gather=True, nii=True), {}, "fold_gather"),
-    (dict(siso="cuda", mode="maxlog", ext_dtype="float8_e4m3fn"), {}, "float8"),
-    (dict(siso="cuda", mode="linlog"), {}, "max-log"),
-    (dict(siso="cuda", mode="logmap"), {}, "max-log"),
-    (dict(siso="ascan"), {}, "ascan"),
-    (dict(siso="window"), {}, "windowed"),
-    ({}, dict(perm_b=np.zeros((2, 40), np.int32)), "mixed-K"),
-    ({}, dict(group_tables=(None, None, None)), "mixed-K"),
+@pytest.mark.parametrize("cfg_kw,what", [
+    (dict(siso="cuda", mode="maxlog", fold_gather=True, nii=True), "fold_gather"),
+    (dict(siso="cuda", mode="maxlog", ext_dtype="float8_e4m3fn"), "float8"),
+    (dict(siso="ascan"), "ascan"),
+    (dict(siso="window"), "windowed"),
 ])
-def test_out_of_slice_options_raise(cfg_kw, call_kw, what):
-    """(e) What this slice does not port raises NotImplementedError naming
+def test_out_of_slice_options_raise(cfg_kw, what):
+    """(e) What the port does not hold yet raises NotImplementedError naming
     the missing piece; nothing falls through to another path."""
     inputs = make_decode_inputs(40, 2, seed=0)
     with pytest.raises(NotImplementedError, match=what):
         turbo_decode(*inputs, DecoderConfig(K=40, n_iters=1, **cfg_kw),
-                     device="cpu", **call_kw)
+                     device="cpu")
+
+
+@pytest.mark.parametrize("cfg_kw,tables", [
+    (dict(interleaver="umts"), None),
+    (dict(siso="cuda", mode="linlog"), None),
+    (dict(siso="cuda", mode="logmap"), None),
+    ({}, "perm_b"),
+    ({}, "group_tables"),
+    (dict(siso="cuda", mode="linlog", interleaver="umts"), "group_tables"),
+])
+def test_options_of_the_sweep_path_decode(cfg_kw, tables):
+    """The options the BER sweep brought to the decoder (UMTS interleaver,
+    linlog and log-MAP on the kernel path, per-codeword and grouped mixed-K
+    tables) decode a clean batch to the transmitted bits."""
+    cfg = DecoderConfig(K=40, n_iters=2, **cfg_kw)
+    rng = np.random.default_rng(1)
+    bits = rng.integers(0, 2, (2, 40)).astype(np.int8)
+    enc = [np.stack(x) for x in zip(*(
+        tref.turbo_encode(b, cfg.perm()) for b in bits))]
+    llrs = [4.0 * (1.0 - 2.0 * x.astype(np.float32)) for x in enc]
+    kw = {}
+    if tables:
+        pg, ig, gid = grouped_perm_tables([40, 40], 40, cfg.interleaver)
+        kw = (dict(group_tables=(pg, ig, gid)) if tables == "group_tables"
+              else dict(perm_b=pg[gid], inv_b=ig[gid]))
+    hard, iters, L = turbo_decode(*llrs, cfg, device="cpu", **kw)
+    np.testing.assert_array_equal(hard.numpy(), bits)
+    assert iters.tolist() == [2, 2] and bool(torch.isfinite(L).all())
 
 
 def test_unknown_values_raise():

@@ -192,10 +192,10 @@ def test_window_len_and_quantize_match_jax():
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     T, B, K = 64, 4, 40
     z = lambda dt=torch.float32: torch.zeros((T, B), dtype=dt)
-    with pytest.raises(NotImplementedError, match="max-log"):
-        ck.siso_cells(z(), z(), z(), K, "logmap")
-    with pytest.raises(NotImplementedError, match="max-log"):
-        ck.siso_cells(z(), z(), z(), K, "linlog")
+    with pytest.raises(ValueError, match="unknown max"):
+        ck.siso_cells(z(), z(), z(), K, "constlog")
+    for mode in ("logmap", "linlog"):        # all three modes are taken
+        assert ck.siso_cells(z(), z(), z(), K, mode).shape == (T, B)
     with pytest.raises(ValueError, match="contiguous"):
         ck.siso_cells(torch.zeros((B, T)).T, z(), z(), K, "maxlog")
     with pytest.raises(TypeError):

@@ -61,3 +61,47 @@ def test_scalar_bcjr_equal(mode):
     for g, w in zip(tref.bcjr_siso(ls, lp, la, mode),
                     jref.bcjr_siso(ls, lp, la, mode)):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("K", [40, 41, 320, 1280, 2281, 5114])
+def test_umts_tables_equal(K):
+    perm = tspec.umts_perm(K)
+    assert perm.dtype == jspec.umts_perm(K).dtype
+    np.testing.assert_array_equal(perm, jspec.umts_perm(K))
+    np.testing.assert_array_equal(tspec.umts_inv(K), jspec.umts_inv(K))
+    assert sorted(perm) == list(range(K))
+    np.testing.assert_array_equal(perm[tspec.umts_inv(K)], np.arange(K))
+
+
+def test_umts_illegal_k_raises():
+    for K in (39, 5115):
+        with pytest.raises(ValueError):
+            tspec.umts_perm(K)
+        with pytest.raises(ValueError):
+            jspec.umts_perm(K)
+
+
+@pytest.mark.parametrize("K", [40, 168, 1024, 6144])
+def test_rate_match_maps_equal(K):
+    import turbotpu.spec.rate_match  # noqa: F401  (the package shadows the
+    import turbotpu_torch.spec.rate_match  # noqa: F401  module with a function)
+    import sys
+    jrm = sys.modules["turbotpu.spec.rate_match"]
+    trm = sys.modules["turbotpu_torch.spec.rate_match"]
+    for g, w in zip(trm.sub_block_maps(K + 4), jrm.sub_block_maps(K + 4)):
+        np.testing.assert_array_equal(g, w)
+    for g, w in zip(trm.circular_buffer_map(K), jrm.circular_buffer_map(K)):
+        np.testing.assert_array_equal(g, w)
+    for E, rv, n_cb, F in ((2 * K, 0, None, 0), (4 * K, 2, None, 0),
+                           (K + 50, 3, 2 * K, 0), (3 * K, 1, None, 8)):
+        got = trm.select_indices(K, E, rv, n_cb, F)
+        want = jrm.select_indices(K, E, rv, n_cb, F)
+        assert got.dtype == want.dtype and len(got) == E
+        np.testing.assert_array_equal(got, want)
+    rng = np.random.default_rng(K)
+    d = [rng.integers(0, 2, K + 4).astype(np.int8) for _ in range(3)]
+    np.testing.assert_array_equal(trm.rate_match(*d, 2 * K, 1),
+                                  jrm.rate_match(*d, 2 * K, 1))
+    llr = rng.normal(size=4 * K)
+    for g, w in zip(trm.de_rate_match(llr, K, 2), jrm.de_rate_match(llr, K, 2)):
+        np.testing.assert_array_equal(g, w)

@@ -1,9 +1,11 @@
 """Builds the package's CUDA sources with nvcc and loads them with ctypes.
 
-Each `csrc/<name>.cu` has a plain C interface and becomes
-`build/lib<name>-<hash of the source and flags>.so` beside the package, at
-first use.  Nothing is built when a module is imported.  A build that fails
-raises; there is no other path.
+A target is a source `csrc/<name>.cu` with a plain C interface plus a tuple of
+`-D` defines that selects one variant of it; each target becomes
+`build/lib<name>-<hash of the source, the defines and the flags>.so` beside
+the package, at first use, by an nvcc process of its own (targets asked for
+together are compiled together).  Nothing is built when a module is
+imported.  A build that fails raises; there is no other path.
 """
 
 from __future__ import annotations
@@ -23,8 +25,10 @@ BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
-_loaded: dict[str, ctypes.CDLL] = {}
-build_seconds: dict[str, float] = {}   # name -> seconds nvcc took (0 if cached)
+Target = tuple[str, tuple[str, ...]]     # (source name, -D defines)
+
+_loaded: dict[Target, ctypes.CDLL] = {}
+build_seconds: dict[Target, float] = {}  # seconds nvcc took (0 if cached)
 
 
 def find_nvcc() -> str:
@@ -39,48 +43,52 @@ def find_nvcc() -> str:
     return found
 
 
-def _target(name: str, extra_flags: tuple[str, ...]) -> tuple[Path, Path]:
+def _paths(target: Target, extra_flags: tuple[str, ...]) -> tuple[Path, Path]:
+    name, defines = target
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS + extra_flags).encode())
+    h.update(" ".join(NVCC_FLAGS + defines + extra_flags).encode())
     return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(names: tuple[str, ...] | None = None,
-          extra_flags: tuple[str, ...] = ()) -> dict[str, Path]:
-    """Build the named sources (all of csrc/ when None), one nvcc process
-    each, all started together.  Returns name -> library path."""
-    if names is None:
-        names = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
+def build(targets, extra_flags: tuple[str, ...] = ()) -> dict[Target, Path]:
+    """Build the targets, one nvcc process each, all started together.
+    Returns target -> library path.  With extra_flags the compiler's output
+    (for example the report of -Xptxas -v) is printed."""
     BUILD_DIR.mkdir(exist_ok=True)
     out, running = {}, []
-    for name in names:
-        src, lib = _target(name, extra_flags)
-        out[name] = lib
+    for target in targets:
+        src, lib = _paths(target, extra_flags)
+        out[target] = lib
         if lib.exists():
-            build_seconds.setdefault(name, 0.0)
+            build_seconds.setdefault(target, 0.0)
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(src)]
+        cmd = [find_nvcc(), *NVCC_FLAGS, *target[1], *extra_flags,
+               "-o", str(tmp), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        running.append((name, lib, tmp, cmd, proc, time.perf_counter()))
-    for name, lib, tmp, cmd, proc, t0 in running:
+        running.append((target, lib, tmp, cmd, proc, time.perf_counter()))
+    for target, lib, tmp, cmd, proc, t0 in running:
         log, _ = proc.communicate()
-        build_seconds[name] = time.perf_counter() - t0
+        build_seconds[target] = time.perf_counter() - t0
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {name}.cu:\n"
-                f"{' '.join(cmd)}\n{log}")
+                f"nvcc failed ({proc.returncode}) on {target[0]}.cu "
+                f"{' '.join(target[1])}:\n{' '.join(cmd)}\n{log}")
         if extra_flags and log.strip():
-            print(log)
+            print(f"{target[0]}.cu {' '.join(target[1])}\n{log}")
         os.replace(tmp, lib)      # atomic: a half-written library never loads
     return out
 
 
-def load(name: str, extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """The shared library of csrc/<name>.cu, built first if need be."""
-    if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(str(build((name,), extra_flags)[name]))
-    return _loaded[name]
+def load(name: str, defines: tuple[str, ...] = (),
+         extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The shared library of csrc/<name>.cu compiled with `defines`, built
+    first if need be."""
+    target = (name, tuple(defines))
+    if target not in _loaded:
+        _loaded[target] = ctypes.CDLL(
+            str(build((target,), extra_flags)[target]))
+    return _loaded[target]

@@ -1,5 +1,5 @@
-"""State carried across from the JAX package: configuration, layouts, and
-the loop's carried tensors.
+"""State carried across from the JAX package: configurations, interleaver
+tables, layouts, and the loop's carried tensors.
 
 The system has no weights.  What a caller of the JAX package holds is a
 DecoderConfig, streams in the `(cells, T, 8, 128)` cell layout (1024
@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from .decoder.turbo import DecoderConfig
 
@@ -33,6 +34,32 @@ def config_from_dict(d: dict) -> DecoderConfig:
     if "siso" in d:
         d["siso"] = _SISO_NAMES.get(d["siso"], d["siso"])
     return DecoderConfig(**d)
+
+
+def sim_config_from_dict(d: dict):
+    """`dataclasses.asdict` of the JAX package's SimConfig -> the port's
+    (harness.ber.SimConfig), its nested decoder included."""
+    from .harness.ber import SimConfig
+    names = {f.name for f in dataclasses.fields(SimConfig)}
+    unknown = set(d) - names
+    if unknown:
+        raise ValueError(f"unknown SimConfig fields {sorted(unknown)}")
+    d = dict(d)
+    if "decoder" in d:
+        d["decoder"] = config_from_dict(d["decoder"])
+    for name in ("ebn0_db_grid", "K_mix", "E_mix", "rv_sequence"):
+        if name in d:
+            d[name] = tuple(d[name])
+    return SimConfig(**d)
+
+
+def tables_to_torch(tables, device="cpu") -> tuple[torch.Tensor, ...]:
+    """Interleaver tables of a mixed-K batch as numpy (the per-codeword pair
+    (perm_b, inv_b) of bucketing.embedded_perm_tables, or the grouped triple
+    (perm_g, inv_g, gid) of grouped_perm_tables, from either package) ->
+    int64 tensors on `device`, the index type torch.gather takes."""
+    return tuple(torch.from_numpy(np.asarray(t).astype(np.int64)).to(device)
+                 for t in tables)
 
 
 def cells_to_tb(x: np.ndarray, B: int | None = None) -> np.ndarray:

@@ -1,7 +1,9 @@
-// Fused max-log BCJR SISO half-iteration for Hopper (sm_90a).
+// Fused BCJR SISO half-iteration for Hopper (sm_90a), in the three max*
+// modes: max-log, linlog and log-MAP.
 //
 // Replaces the TPU kernel turbotpu/siso/pallas_kernel.py::_make_kernel in its
-// two non-boundary contracts (built there by _build_call):
+// two non-boundary contracts (built there by _build_call), with the max* of
+// _mstar/_mstar_tree and the per-leaf _extrinsic of the same file:
 //   NII   (nii=True):  window-start alphas come from the previous
 //                      half-iteration (ain), fresh ones go out (aout);
 //   exact (nii=False): phase 1 runs alpha forward and keeps one checkpoint
@@ -9,8 +11,15 @@
 // Both then walk the windows backward: recompute and store alpha through the
 // window, run beta through it (continuous across windows, exact from e0 at
 // the padded trellis end) and emit the extrinsic
-//   Le = max(u=0 edges) - max(u=1 edges)
-// with the parity add factored out of the reduction.
+//   Le = max*(u=0 edges) - max*(u=1 edges).
+// The mode is a compile-time parameter:
+//   max-log  max*(a, b) = max(a, b); the parity add is factored out of the
+//            extrinsic's reduction (exact there: rounding is monotone);
+//   linlog   max(a, b) + max(0, 0.693147 - 0.25 |a - b|);
+//   log-MAP  max(a, b) + log1p(exp(-|a - b|)), full-precision libm.
+// linlog's clipped correction depends on the order of the reduction, so
+// linlog and log-MAP reduce the extrinsic's 8 leaves per input bit, parity
+// added per leaf, as a balanced pairwise tree in state order.
 //
 // Layout: every stream is time-major (T, B): element (t, b) at t*B + b, so
 // the 32 codewords of a warp read 32 neighbouring values at each step.
@@ -29,6 +38,11 @@
 // second set of registers (the two sets swap roles in a loop unrolled by
 // two).  Splitting a codeword's 8 states over 8 lanes is the next step.
 //
+// The corrections multiply the arithmetic per step (linlog about 2.5x the
+// instructions of max-log, log-MAP two libm calls per max*) on the same
+// dependent chain, so these modes are bound by issue and latency all the
+// more; the memory side is unchanged.
+//
 // Arithmetic is kept in the reference's order so results agree bit for bit:
 // explicit __fadd_rn/__fmul_rn (no FMA contraction), renormalisation by the
 // 8-state max after every 8 steps counted from the window start, alphas
@@ -44,6 +58,10 @@ namespace {
 
 constexpr int UNROLL = 8;    // steps per block; also the renorm cadence
 constexpr float BIG = 1e9f;  // e0 = (0, -BIG x 7)
+
+// max* modes, as the wrapper numbers them.
+constexpr int MAXLOG = 0, LINLOG = 1, LOGMAP = 2;
+constexpr float LIN_C0 = 0.693147f, LIN_C1 = 0.25f;
 
 // ---- 3GPP RSC trellis (g0 = 13, g1 = 15 octal) as bit formulas ----------
 // state s = (a1 << 2) | (a2 << 1) | a3, feedback bit ak = u ^ a2 ^ a3.
@@ -91,12 +109,23 @@ __device__ __forceinline__ void st_le(int8_t* p, float v, float inv_q) {
 }
 
 // ---- recursion steps -----------------------------------------------------
+template <int MODE>
+__device__ __forceinline__ float mstar(float a, float b) {
+  const float m = fmaxf(a, b);
+  if (MODE == MAXLOG) return m;
+  const float d = fabsf(__fsub_rn(a, b));
+  if (MODE == LINLOG)
+    return __fadd_rn(m, fmaxf(0.0f, __fsub_rn(LIN_C0, __fmul_rn(LIN_C1, d))));
+  return __fadd_rn(m, log1pf(expf(-d)));
+}
+
 __device__ __forceinline__ void init_e0(float (&m)[8]) {
   m[0] = 0.0f;
 #pragma unroll
   for (int s = 1; s < 8; ++s) m[s] = -BIG;
 }
 
+template <int MODE>
 __device__ __forceinline__ void alpha_step(float (&a)[8], float A, float P) {
   const float AP = __fadd_rn(A, P);
   float n[8];
@@ -105,12 +134,13 @@ __device__ __forceinline__ void alpha_step(float (&a)[8], float A, float P) {
     float c0 = a[t_prev(s2, 0)];
     if (t_prev_par(s2, 0)) c0 = __fadd_rn(c0, P);
     const float c1 = __fadd_rn(a[t_prev(s2, 1)], t_prev_par(s2, 1) ? AP : A);
-    n[s2] = fmaxf(c0, c1);
+    n[s2] = mstar<MODE>(c0, c1);
   }
 #pragma unroll
   for (int s = 0; s < 8; ++s) a[s] = n[s];
 }
 
+template <int MODE>
 __device__ __forceinline__ void beta_step(float (&b)[8], float A, float P) {
   const float AP = __fadd_rn(A, P);
   float n[8];
@@ -119,7 +149,7 @@ __device__ __forceinline__ void beta_step(float (&b)[8], float A, float P) {
     float c0 = b[t_next(s, 0)];
     if (t_par(s, 0)) c0 = __fadd_rn(c0, P);
     const float c1 = __fadd_rn(b[t_next(s, 1)], t_par(s, 1) ? AP : A);
-    n[s] = fmaxf(c0, c1);
+    n[s] = mstar<MODE>(c0, c1);
   }
 #pragma unroll
   for (int s = 0; s < 8; ++s) b[s] = n[s];
@@ -145,6 +175,31 @@ __device__ __forceinline__ float ext_side(const float (&a)[8],
     if (t_par(s, U)) m1 = fmaxf(m1, x); else m0 = fmaxf(m0, x);
   }
   return fmaxf(m0, __fadd_rn(m1, P));
+}
+
+// max* over the u=U edges, per leaf: alpha[s] + beta[next(s, U)], + P where
+// the edge's parity is 1, reduced pairwise (0,1)(2,3)(4,5)(6,7), then pairs
+// of those, then the last pair.
+template <int MODE, int U>
+__device__ __forceinline__ float ext_leaves(const float (&a)[8],
+                                            const float (&b)[8], float P) {
+  float x[8];
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    x[s] = __fadd_rn(a[s], b[t_next(s, U)]);
+    if (t_par(s, U)) x[s] = __fadd_rn(x[s], P);
+  }
+  const float x01 = mstar<MODE>(x[0], x[1]), x23 = mstar<MODE>(x[2], x[3]);
+  const float x45 = mstar<MODE>(x[4], x[5]), x67 = mstar<MODE>(x[6], x[7]);
+  return mstar<MODE>(mstar<MODE>(x01, x23), mstar<MODE>(x45, x67));
+}
+
+template <int MODE>
+__device__ __forceinline__ float extrinsic(const float (&a)[8],
+                                           const float (&b)[8], float P) {
+  if (MODE == MAXLOG)
+    return __fsub_rn(ext_side<0>(a, b, P), ext_side<1>(a, b, P));
+  return __fsub_rn(ext_leaves<MODE, 0>(a, b, P), ext_leaves<MODE, 1>(a, b, P));
 }
 
 // One block of UNROLL raw stream rows, as loaded.  Blocks are fetched one
@@ -194,7 +249,7 @@ struct Streams {
 // UNROLL forward steps from t0 on the rows in `cur`, after starting the
 // fetch of the next block into `nxt`.  With aw != nullptr the alpha before
 // each step goes to the window scratch (row t0 - window start = tw).
-template <typename TC, typename TE>
+template <int MODE, typename TC, typename TE>
 __device__ __forceinline__ void alpha_block(
     const Streams<TC, TE>& st, int t0, bool more, const Rows<TC, TE>& cur,
     Rows<TC, TE>& nxt, float (&alpha)[8], float* aw, int tw) {
@@ -208,7 +263,7 @@ __device__ __forceinline__ void alpha_block(
       for (int s = 0; s < 8; ++s)
         aw[((int64_t)(tw + j) * 8 + s) * st.B + st.b] = alpha[s];
     }
-    alpha_step(alpha, A[j], P[j]);
+    alpha_step<MODE>(alpha, A[j], P[j]);
   }
   renorm(alpha);
 }
@@ -228,7 +283,7 @@ __device__ __forceinline__ void fetch_alphas(const float* aw, int64_t B,
 // UNROLL backward steps over the block at t0 (window row tw): emit Le from
 // the stored alphas and the running beta, then step beta.  The next block
 // down (t0 - UNROLL) is fetched first.
-template <typename TC, typename TE>
+template <int MODE, typename TC, typename TE>
 __device__ __forceinline__ void beta_block(
     const Streams<TC, TE>& st, int t0, int tw, bool more,
     const Rows<TC, TE>& cur, const float (&at)[UNROLL][8],
@@ -242,15 +297,14 @@ __device__ __forceinline__ void beta_block(
   }
 #pragma unroll
   for (int j = UNROLL - 1; j >= 0; --j) {
-    const float v = __fsub_rn(ext_side<0>(at[j], beta, P[j]),
-                              ext_side<1>(at[j], beta, P[j]));
-    st_le(le + (int64_t)(t0 + j) * st.B + st.b, v, inv_q);
-    beta_step(beta, A[j], P[j]);
+    st_le(le + (int64_t)(t0 + j) * st.B + st.b,
+          extrinsic<MODE>(at[j], beta, P[j]), inv_q);
+    beta_step<MODE>(beta, A[j], P[j]);
   }
   renorm(beta);
 }
 
-template <typename TC, typename TE, bool NII>
+template <typename TC, typename TE, bool NII, int MODE>
 __global__ void siso_kernel(
     const TC* __restrict__ ls, const TC* __restrict__ lp,
     const TE* __restrict__ la, TE* __restrict__ le,
@@ -276,7 +330,7 @@ __global__ void siso_kernel(
         for (int s = 0; s < 8; ++s)
           ckpt[((int64_t)(t0 / W) * 8 + s) * B + b] = alpha[s];
       }
-      alpha_block(st, t0, t0 + UNROLL < T, r0, r1, alpha, nullptr, 0);
+      alpha_block<MODE>(st, t0, t0 + UNROLL < T, r0, r1, alpha, nullptr, 0);
       const int t1 = t0 + UNROLL;
       if (t1 < T) {
         if (t1 % W == 0) {
@@ -284,7 +338,7 @@ __global__ void siso_kernel(
           for (int s = 0; s < 8; ++s)
             ckpt[((int64_t)(t1 / W) * 8 + s) * B + b] = alpha[s];
         }
-        alpha_block(st, t1, t1 + UNROLL < T, r1, r0, alpha, nullptr, 0);
+        alpha_block<MODE>(st, t1, t1 + UNROLL < T, r1, r0, alpha, nullptr, 0);
       }
     }
   }
@@ -309,10 +363,11 @@ __global__ void siso_kernel(
     }
 
     for (int tw = 0; tw < W; tw += 2 * UNROLL) {
-      alpha_block(st, base + tw, tw + UNROLL < W, r0, r1, alpha, aw, tw);
+      alpha_block<MODE>(st, base + tw, tw + UNROLL < W, r0, r1, alpha, aw,
+                        tw);
       if (tw + UNROLL < W)
-        alpha_block(st, base + tw + UNROLL, tw + 2 * UNROLL < W, r1, r0, alpha,
-                    aw, tw + UNROLL);
+        alpha_block<MODE>(st, base + tw + UNROLL, tw + 2 * UNROLL < W, r1, r0,
+                          alpha, aw, tw + UNROLL);
     }
     if (NII && w + 1 < n_win) {
 #pragma unroll
@@ -324,26 +379,27 @@ __global__ void siso_kernel(
     st.fetch(base + W - UNROLL, r0);
     fetch_alphas(aw, B, b, W - UNROLL, a0);
     for (int tw = W - UNROLL; tw >= 0; tw -= 2 * UNROLL) {
-      beta_block(st, base + tw, tw, tw > 0, r0, a0, r1, a1, beta, aw, le, inv_q);
+      beta_block<MODE>(st, base + tw, tw, tw > 0, r0, a0, r1, a1, beta, aw, le,
+                       inv_q);
       if (tw > 0)
-        beta_block(st, base + tw - UNROLL, tw - UNROLL, tw > UNROLL, r1, a1, r0,
-                   a0, beta, aw, le, inv_q);
+        beta_block<MODE>(st, base + tw - UNROLL, tw - UNROLL, tw > UNROLL, r1,
+                         a1, r0, a0, beta, aw, le, inv_q);
     }
   }
 }
 
-template <typename TC, typename TE>
+template <typename TC, typename TE, int MODE>
 cudaError_t launch(bool nii, const void* ls, const void* lp, const void* la,
                    void* le, const float* ain, float* aout, float* aw,
                    float* ckpt, int B, int K, int n_win, int W, float eff,
                    float inv_q, int threads, cudaStream_t stream) {
   const dim3 grid((B + threads - 1) / threads), block(threads);
   if (nii) {
-    siso_kernel<TC, TE, true><<<grid, block, 0, stream>>>(
+    siso_kernel<TC, TE, true, MODE><<<grid, block, 0, stream>>>(
         (const TC*)ls, (const TC*)lp, (const TE*)la, (TE*)le, ain, aout, aw,
         ckpt, B, K, n_win, W, eff, inv_q);
   } else {
-    siso_kernel<TC, TE, false><<<grid, block, 0, stream>>>(
+    siso_kernel<TC, TE, false, MODE><<<grid, block, 0, stream>>>(
         (const TC*)ls, (const TC*)lp, (const TE*)la, (TE*)le, ain, aout, aw,
         ckpt, B, K, n_win, W, eff, inv_q);
   }
@@ -352,29 +408,40 @@ cudaError_t launch(bool nii, const void* ls, const void* lp, const void* la,
 
 }  // namespace
 
-// chan_type: 0 = float32, 1 = bfloat16 (ls, lp).
-// ext_type:  0 = float32, 1 = bfloat16, 2 = int8 (la in, le out).
+// One library holds one variant, chosen at compile time:
+//   -DSISO_MODE=  0 max-log, 1 linlog, 2 log-MAP
+//   -DSISO_CHAN=  0 float32, 1 bfloat16          (ls, lp)
+//   -DSISO_EXT=   0 float32, 1 bfloat16, 2 int8  (la in, le out)
+// (the variants compile side by side, and a decode builds only its own).
+#if !defined(SISO_MODE) || !defined(SISO_CHAN) || !defined(SISO_EXT)
+#error "compile with -DSISO_MODE=, -DSISO_CHAN= and -DSISO_EXT="
+#endif
+#if SISO_MODE < 0 || SISO_MODE > 2 || SISO_CHAN < 0 || SISO_CHAN > 1 || \
+    SISO_EXT < 0 || SISO_EXT > 2
+#error "unknown SISO_MODE, SISO_CHAN or SISO_EXT"
+#endif
+
+namespace {
+template <int CODE> struct StreamType;
+template <> struct StreamType<0> { using type = float; };
+template <> struct StreamType<1> { using type = __nv_bfloat16; };
+template <> struct StreamType<2> { using type = int8_t; };
+}  // namespace
+
+// mode, chan_type, ext_type: the caller's codes, which must be this
+// library's (else -1).
 // nii != 0:  ain/aout are (n_win, 8, B) fp32, ckpt unused (may be null);
 // nii == 0:  ckpt is (n_win, 8, B) fp32 scratch, ain/aout unused.
-// aw is (W, 8, B) fp32 scratch.  Returns the launch's cudaError_t (0 = ok),
-// or -1 for a type code it does not know.
+// aw is (W, 8, B) fp32 scratch.  Returns the launch's cudaError_t (0 = ok).
 extern "C" int turbotpu_siso_launch(
-    int chan_type, int ext_type, int nii, const void* ls, const void* lp,
-    const void* la, void* le, const void* ain, void* aout, void* aw,
-    void* ckpt, int B, int K, int n_win, int W, float eff, float inv_q,
-    int threads, void* stream) {
-#define TURBOTPU_SISO_CASE(C, E, TC, TE)                                      \
-  if (chan_type == C && ext_type == E)                                        \
-    return (int)launch<TC, TE>(nii != 0, ls, lp, la, le, (const float*)ain,   \
-                               (float*)aout, (float*)aw, (float*)ckpt, B, K,  \
-                               n_win, W, eff, inv_q, threads,                 \
-                               (cudaStream_t)stream);
-  TURBOTPU_SISO_CASE(0, 0, float, float)
-  TURBOTPU_SISO_CASE(0, 1, float, __nv_bfloat16)
-  TURBOTPU_SISO_CASE(0, 2, float, int8_t)
-  TURBOTPU_SISO_CASE(1, 0, __nv_bfloat16, float)
-  TURBOTPU_SISO_CASE(1, 1, __nv_bfloat16, __nv_bfloat16)
-  TURBOTPU_SISO_CASE(1, 2, __nv_bfloat16, int8_t)
-#undef TURBOTPU_SISO_CASE
-  return -1;
+    int mode, int chan_type, int ext_type, int nii, const void* ls,
+    const void* lp, const void* la, void* le, const void* ain, void* aout,
+    void* aw, void* ckpt, int B, int K, int n_win, int W, float eff,
+    float inv_q, int threads, void* stream) {
+  if (mode != SISO_MODE || chan_type != SISO_CHAN || ext_type != SISO_EXT)
+    return -1;
+  return (int)launch<StreamType<SISO_CHAN>::type, StreamType<SISO_EXT>::type,
+                     SISO_MODE>(
+      nii != 0, ls, lp, la, le, (const float*)ain, (float*)aout, (float*)aw,
+      (float*)ckpt, B, K, n_win, W, eff, inv_q, threads, (cudaStream_t)stream);
 }

@@ -23,6 +23,7 @@ from .._device import resolve_device
 from ..siso.scan import siso_decode_scan
 from ..spec import crc as crc_mod
 from ..spec.qpp import qpp_inv, qpp_perm
+from ..spec.umts import umts_inv, umts_perm
 from .early_term import crc_ok_batch, make_crc_matrix
 
 SisoFn = Callable[..., tuple[torch.Tensor, torch.Tensor]]
@@ -64,18 +65,15 @@ class DecoderConfig:
                                     # into the kernel's la read
 
     def perm(self) -> np.ndarray:
-        self._lte_only()
-        return qpp_perm(self.K)
+        return {"lte": qpp_perm, "umts": umts_perm}[self._interleaver()](self.K)
 
     def inv(self) -> np.ndarray:
-        self._lte_only()
-        return qpp_inv(self.K)
+        return {"lte": qpp_inv, "umts": umts_inv}[self._interleaver()](self.K)
 
-    def _lte_only(self):
-        if self.interleaver != "lte":
-            raise NotImplementedError(
-                f"interleaver={self.interleaver!r}: only the LTE QPP "
-                "interleaver is ported (spec/umts.py is not)")
+    def _interleaver(self) -> str:
+        if self.interleaver not in ("lte", "umts"):
+            raise ValueError(f"unknown interleaver {self.interleaver!r}")
+        return self.interleaver
 
     def __post_init__(self):
         if self.nii and self.K >= 4096 and (self.window or 128) < 256:
@@ -122,12 +120,31 @@ def turbo_decode(ls, lp1, lp2, tail1, tail2, cfg: DecoderConfig,
     Inputs are tensors or numpy arrays; they are moved to `device`.
     Returns (hard_bits (B, K) int8, n_iters_run (B,) int32, L (B, K) fp32),
     on `device`.
+
+    perm_b / inv_b: optional per-codeword (B, K) interleaver tables for true
+    mixed-K batches (bucketing.embedded_perm_tables): each codeword is
+    gathered through its own embedded permutation, so a heterogeneous batch
+    of real per-K codewords decodes in one call.  None uses the shared cfg.K
+    table.
+
+    group_tables: (perm_g (G, K), inv_g (G, K), gid (B,)) from
+    bucketing.grouped_perm_tables, the same decode for a batch with few
+    distinct sizes.  Mutually exclusive with perm_b/inv_b.  Both forms run
+    one per-codeword gather underneath and give identical results.
     """
     dev = resolve_device(device)
-    if perm_b is not None or inv_b is not None or group_tables is not None:
-        raise NotImplementedError(
-            "perm_b/inv_b/group_tables: mixed-K batches "
-            "(decoder/bucketing.py) are not ported")
+    if (perm_b is None) != (inv_b is None):
+        raise ValueError("perm_b and inv_b come as a pair")
+    if group_tables is not None:
+        if perm_b is not None:
+            raise ValueError("group_tables and perm_b/inv_b are mutually "
+                             "exclusive")
+        perm_g, inv_g, gid = (torch.as_tensor(x).to(dev, torch.long)
+                              for x in group_tables)
+        perm_b, inv_b = perm_g[gid], inv_g[gid]
+    elif perm_b is not None:
+        perm_b, inv_b = (torch.as_tensor(x).to(dev, torch.long)
+                         for x in (perm_b, inv_b))
     f32 = torch.float32
     ls, lp1, lp2, tail1, tail2 = (
         torch.as_tensor(x).to(device=dev, dtype=f32)
@@ -135,16 +152,24 @@ def turbo_decode(ls, lp1, lp2, tail1, tail2, cfg: DecoderConfig,
     B, K = ls.shape
     if K != cfg.K:
         raise ValueError(f"ls has K={K}, the configuration K={cfg.K}")
+    if perm_b is not None and (perm_b.shape != (B, K) or inv_b.shape != (B, K)):
+        raise ValueError(f"per-codeword tables must be {(B, K)}, got "
+                         f"{tuple(perm_b.shape)} and {tuple(inv_b.shape)}")
     if cfg.siso == "cuda":
         from .turbo_cells import turbo_decode_cells
-        return turbo_decode_cells(ls, lp1, lp2, tail1, tail2, cfg)
+        return turbo_decode_cells(ls, lp1, lp2, tail1, tail2, cfg,
+                                  perm_b=perm_b, inv_b=inv_b)
     siso = get_siso(cfg)
     scale = cfg.resolved_ext_scale()
 
-    perm = torch.from_numpy(cfg.perm()).to(dev, torch.long)
-    inv = torch.from_numpy(cfg.inv()).to(dev, torch.long)
-    g_perm = lambda x: x[:, perm]
-    g_inv = lambda x: x[:, inv]
+    if perm_b is None:
+        perm = torch.from_numpy(cfg.perm()).to(dev, torch.long)
+        inv = torch.from_numpy(cfg.inv()).to(dev, torch.long)
+        g_perm = lambda x: x[:, perm]
+        g_inv = lambda x: x[:, inv]
+    else:
+        g_perm = lambda x: torch.gather(x, 1, perm_b)
+        g_inv = lambda x: torch.gather(x, 1, inv_b)
 
     ls1 = torch.cat([ls, tail1[:, 0::2]], dim=1)
     lp1f = torch.cat([lp1, tail1[:, 1::2]], dim=1)

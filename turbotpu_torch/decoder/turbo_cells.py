@@ -4,8 +4,10 @@ Counterpart of turbotpu/decoder/turbo_cells.py.  Every per-iteration tensor
 stays in the kernel's time-major (T, B) layout, so the hot loop runs without
 a transpose, and the kernel forms the branch metrics itself: the only
 per-iteration work outside it is the extrinsic interleave gather
-(`index_select` along time) and the early-termination bookkeeping.
-Channel-LLR packing and hard-bit unpacking cross layouts once each.
+(`index_select` along time, or for a mixed-K batch one `torch.gather` along
+time through a per-codeword `(KTp, B)` index) and the early-termination
+bookkeeping.  Channel-LLR packing and hard-bit unpacking cross layouts once
+each.
 """
 
 from __future__ import annotations
@@ -14,7 +16,6 @@ import numpy as np
 import torch
 
 from ..siso.cuda_kernel import BIG, _round_up, siso_cells, window_len
-from ..siso.maxstar import MAXLOG
 from .early_term import _crc_check_matrix_np
 from .turbo import DecoderConfig
 
@@ -22,18 +23,31 @@ _STREAM_TYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "int8": torch.int8}
 
 
+def time_major_index(tab: torch.Tensor, KTp: int) -> torch.Tensor:
+    """Per-codeword (B, K) table -> (KTp, B) int64 gather index along time,
+    identity on the rows from K up."""
+    B, K = tab.shape
+    ext = torch.arange(K, KTp, device=tab.device)[:, None].expand(KTp - K, B)
+    return torch.cat([tab.T.to(torch.long), ext], dim=0).contiguous()
+
+
 def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
                        tail1: torch.Tensor, tail2: torch.Tensor,
-                       cfg: DecoderConfig):
+                       cfg: DecoderConfig,
+                       perm_b: torch.Tensor | None = None,
+                       inv_b: torch.Tensor | None = None):
     """Same contract as decoder.turbo.turbo_decode for fp32 (B, K) / (B, 6)
-    tensors on one device, kernel hot loop.  Shared interleaver table only."""
+    tensors on one device, kernel hot loop.
+
+    perm_b / inv_b: optional per-codeword (B, K) int64 embedded interleaver
+    tables of a mixed-K batch (bucketing.embedded_perm_tables; turbo_decode
+    expands grouped tables to this form).  The extrinsic exchange is then
+    out[t, b] = x[index[t, b], b]: in the time-major layout the 32 codewords
+    of a warp read neighbouring addresses wherever they share a block size.
+    """
     B, K = ls.shape
     if K != cfg.K:
         raise ValueError(f"ls has K={K}, the configuration K={cfg.K}")
-    if cfg.mode != MAXLOG:
-        raise NotImplementedError(
-            f"mode={cfg.mode!r} on the kernel path: only the max-log kernels "
-            "are ported (use siso=\"scan\" for linlog/logmap)")
     if cfg.fold_gather:
         raise NotImplementedError(
             "fold_gather=True: the kernel variant that reads la through the "
@@ -62,13 +76,20 @@ def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
     # Extended permutations cover the pad region (gathered rows >= K are
     # masked to zero a-priori inside the kernel, so identity is fine there).
     ext = np.arange(K, KTp, dtype=np.int64)
-    perm = cfg.perm().astype(np.int64)
-    perm_e = torch.from_numpy(np.concatenate([perm, ext])).to(dev)
-    inv_e = torch.from_numpy(
-        np.concatenate([cfg.inv().astype(np.int64), ext])).to(dev)
-    perm_t = torch.from_numpy(perm).to(dev)
-    g_perm = lambda x: x.index_select(0, perm_e)
-    g_inv = lambda x: x.index_select(0, inv_e)
+    if perm_b is None:
+        perm = cfg.perm().astype(np.int64)
+        perm_e = torch.from_numpy(np.concatenate([perm, ext])).to(dev)
+        inv_e = torch.from_numpy(
+            np.concatenate([cfg.inv().astype(np.int64), ext])).to(dev)
+        perm_t = torch.from_numpy(perm).to(dev)
+        g_perm = lambda x: x.index_select(0, perm_e)
+        g_inv = lambda x: x.index_select(0, inv_e)
+        g_sys = lambda x: x.index_select(1, perm_t)
+    else:
+        perm_e, inv_e = (time_major_index(t, KTp) for t in (perm_b, inv_b))
+        g_perm = lambda x: torch.gather(x, 0, perm_e)
+        g_inv = lambda x: torch.gather(x, 0, inv_e)
+        g_sys = lambda x: torch.gather(x, 1, perm_b)
 
     def stream(body, tail, pad_val):
         """(B, K) body + (B, 3) tail -> (KTp, B) stream with the time pad."""
@@ -78,7 +99,7 @@ def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
 
     ls1 = stream(ls, tail1[:, 0::2], BIG)
     lp1s = stream(lp1, tail1[:, 1::2], 0.0)
-    ls2 = stream(ls.index_select(1, perm_t), tail2[:, 0::2], BIG)
+    ls2 = stream(g_sys(ls), tail2[:, 0::2], BIG)
     lp2s = stream(lp2, tail2[:, 1::2], 0.0)
 
     zT = torch.zeros((KTp, B), dtype=dte, device=dev)

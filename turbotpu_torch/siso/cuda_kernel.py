@@ -1,5 +1,5 @@
-"""Fused max-log SISO: wrappers of the hand-written CUDA kernels and their
-plain PyTorch versions.
+"""Fused SISO: wrappers of the hand-written CUDA kernels and their plain
+PyTorch versions.
 
 Counterpart of turbotpu/siso/pallas_kernel.py.  The kernels are in
 csrc/siso.cu and replace `_make_kernel` (built by `_build_call`) in its two
@@ -8,7 +8,12 @@ non-boundary contracts:
 * `siso_nii`   -- nii=True: window-start alphas inherited from the previous
   half-iteration (`ain`), fresh ones returned (`aout`);
 * `siso_exact` -- nii=False: two-phase checkpoint/recompute, no
-  approximation.
+  approximation;
+
+each in the three max* modes of `_mstar`/`_mstar_tree` there.  max-log keeps
+the two names above; the linlog and log-MAP instantiations count their
+launches as `siso_nii_linlog`, `siso_exact_linlog`, `siso_nii_logmap` and
+`siso_exact_logmap`.
 
 Layout.  All streams are time-major `(T, B)` tensors: the same element order
 at each step as the JAX package's `(cells, T, 8, 128)`, without its batch
@@ -23,11 +28,13 @@ version only for a tensor on the CPU.  `LAUNCHES` counts kernel launches.
 
 The plain versions (`siso_nii_plain`, `siso_exact_plain`) are a Python loop
 over steps that repeats the kernel's arithmetic in the same order (fp32
-metrics, renormalisation every UNROLL steps from the window start, the
-factored parity add, the same quantisation), vectorised over the 8 states:
-where the kernel adds no branch metric they add an exact 0.0.  They are what
-the CPU tests and the on-card comparison hold the kernels against, and no
-yardstick of speed.
+metrics, renormalisation every UNROLL steps from the window start, the same
+quantisation), vectorised over the 8 states: where the kernel adds no branch
+metric they add an exact 0.0.  The extrinsic is max-log's factored parity
+add, or for linlog and log-MAP the per-leaf form reduced as an explicit
+pairwise tree in state order (linlog's clipped correction depends on the
+order).  They are what the CPU tests and the on-card comparison hold the
+kernels against, and no yardstick of speed.
 """
 
 from __future__ import annotations
@@ -38,13 +45,23 @@ import torch
 
 from .. import _build
 from ..spec.trellis import TRELLIS
-from .maxstar import MAXLOG, MODES
+from .maxstar import LINLOG, LOGMAP, MAXLOG, MODES, maxstar2
 
 BIG = 1e9
 UNROLL = 8           # trellis steps per block; also the renorm cadence
 THREADS = 32         # codewords per thread block (one warp)
 
-LAUNCHES = {"siso_nii": 0, "siso_exact": 0}
+_MODE_CODES = {MAXLOG: 0, LINLOG: 1, LOGMAP: 2}
+
+
+def kernel_name(nii: bool, mode: str) -> str:
+    """The name a contract/mode instantiation counts its launches under."""
+    base = "siso_nii" if nii else "siso_exact"
+    return base if mode == MAXLOG else f"{base}_{mode}"
+
+
+LAUNCHES = {kernel_name(nii, mode): 0
+            for mode in (MAXLOG, LINLOG, LOGMAP) for nii in (True, False)}
 
 _CHAN_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 _EXT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -84,8 +101,10 @@ class _Tables:
         self.ga0, self.ga1 = idx(T.prev_parity[:, 0]), idx(2 + T.prev_parity[:, 1])
         self.ns0, self.ns1 = idx(T.next_state[:, 0]), idx(T.next_state[:, 1])
         self.gb0, self.gb1 = idx(T.parity[:, 0]), idx(2 + T.parity[:, 1])
-        # per input bit u: successor states, and the edges of parity 0 / 1
+        # per input bit u: successor states, each edge's parity, and the
+        # edges of parity 0 / 1
         self.ns = (self.ns0, self.ns1)
+        self.par = (idx(T.parity[:, 0]), idx(T.parity[:, 1]))
         self.par_rows = tuple(
             (idx((T.parity[:, u] == 0).nonzero()[0]),
              idx((T.parity[:, u] == 1).nonzero()[0])) for u in (0, 1))
@@ -101,26 +120,35 @@ def _renorm(m: torch.Tensor) -> torch.Tensor:
     return m - m.amax(dim=0, keepdim=True)
 
 
-def _alpha_step(alpha, g, tb):
-    return torch.maximum(alpha[tb.ps0] + g[tb.ga0], alpha[tb.ps1] + g[tb.ga1])
+def _alpha_step(alpha, g, tb, mode):
+    return maxstar2(alpha[tb.ps0] + g[tb.ga0], alpha[tb.ps1] + g[tb.ga1], mode)
 
 
-def _beta_step(beta, g, tb):
-    return torch.maximum(beta[tb.ns0] + g[tb.gb0], beta[tb.ns1] + g[tb.gb1])
+def _beta_step(beta, g, tb, mode):
+    return maxstar2(beta[tb.ns0] + g[tb.gb0], beta[tb.ns1] + g[tb.gb1], mode)
 
 
-def _extrinsic(alpha, beta, p_row, tb):
-    """max(u=0 edges) - max(u=1 edges) of alpha + beta[next]; P is added once
-    to the max of the parity-1 edges."""
+def _extrinsic(alpha, beta, p_row, tb, mode):
+    """max*(u=0 edges) - max*(u=1 edges) of alpha + beta[next] (+ P on the
+    parity-1 edges).  max-log adds P once to the max of the parity-1 edges;
+    linlog and log-MAP add it per leaf and reduce the 8 leaves pairwise in
+    state order: (0,1)(2,3)(4,5)(6,7), pairs of those, the last pair."""
     side = []
     for u in (0, 1):
         x = alpha + beta[tb.ns[u]]
-        r0, r1 = tb.par_rows[u]
-        side.append(torch.maximum(x[r0].amax(dim=0), x[r1].amax(dim=0) + p_row))
+        if mode == MAXLOG:
+            r0, r1 = tb.par_rows[u]
+            side.append(torch.maximum(x[r0].amax(dim=0),
+                                      x[r1].amax(dim=0) + p_row))
+            continue
+        x = x + torch.stack([torch.zeros_like(p_row), p_row])[tb.par[u]]
+        while x.shape[0] > 1:
+            x = maxstar2(x[0::2], x[1::2], mode)
+        side.append(x[0])
     return side[0] - side[1]
 
 
-def _siso_plain(ls, lp, la, ain, K_real, W, scale, ext_qscale):
+def _siso_plain(ls, lp, la, ain, K_real, W, scale, ext_qscale, mode=MAXLOG):
     T, B = ls.shape
     dev = ls.device
     n_win, n_sub = T // W, W // UNROLL
@@ -142,7 +170,7 @@ def _siso_plain(ls, lp, la, ain, K_real, W, scale, ext_qscale):
             starts[w] = alpha
             for i in range(n_sub):
                 for t in range(w * W + i * UNROLL, w * W + (i + 1) * UNROLL):
-                    alpha = _alpha_step(alpha, G[t], tb)
+                    alpha = _alpha_step(alpha, G[t], tb, mode)
                 alpha = _renorm(alpha)
         aout = None
     else:
@@ -157,7 +185,7 @@ def _siso_plain(ls, lp, la, ain, K_real, W, scale, ext_qscale):
         for i in range(n_sub):
             for j in range(i * UNROLL, (i + 1) * UNROLL):
                 aw[j] = alpha
-                alpha = _alpha_step(alpha, G[w * W + j], tb)
+                alpha = _alpha_step(alpha, G[w * W + j], tb, mode)
             alpha = _renorm(alpha)
         if aout is not None and w + 1 < n_win:
             aout[w + 1] = alpha
@@ -165,42 +193,61 @@ def _siso_plain(ls, lp, la, ain, K_real, W, scale, ext_qscale):
             i0 = W - (i + 1) * UNROLL
             for j in range(i0 + UNROLL - 1, i0 - 1, -1):
                 t = w * W + j
-                le[t] = _quantize_le(_extrinsic(aw[j], beta, P[t], tb),
+                le[t] = _quantize_le(_extrinsic(aw[j], beta, P[t], tb, mode),
                                      la.dtype, ext_qscale)
-                beta = _beta_step(beta, G[t], tb)
+                beta = _beta_step(beta, G[t], tb, mode)
             beta = _renorm(beta)
     return le, aout
 
 
 def siso_nii_plain(ls, lp, la, ain, K_real: int, W: int, scale: float = 1.0,
-                   ext_qscale: float = 0.0):
-    """Plain version of the `siso_nii` kernel.  Returns (le, aout); aout[0]
+                   ext_qscale: float = 0.0, mode: str = MAXLOG):
+    """Plain version of the `siso_nii` kernels.  Returns (le, aout); aout[0]
     is zero (the kernel leaves it unwritten)."""
-    return _siso_plain(ls, lp, la, ain, K_real, W, scale, ext_qscale)
+    return _siso_plain(ls, lp, la, ain, K_real, W, scale, ext_qscale, mode)
 
 
 def siso_exact_plain(ls, lp, la, K_real: int, W: int, scale: float = 1.0,
-                     ext_qscale: float = 0.0):
-    """Plain version of the `siso_exact` kernel.  Returns le."""
-    return _siso_plain(ls, lp, la, None, K_real, W, scale, ext_qscale)[0]
+                     ext_qscale: float = 0.0, mode: str = MAXLOG):
+    """Plain version of the `siso_exact` kernels.  Returns le."""
+    return _siso_plain(ls, lp, la, None, K_real, W, scale, ext_qscale, mode)[0]
 
 
 # ----------------------------------------------------------------------
 # kernel wrappers
 # ----------------------------------------------------------------------
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("siso")
+def _target(mode_code: int, chan_code: int, ext_code: int) -> _build.Target:
+    """csrc/siso.cu compiled for one max* mode and one pair of stream types:
+    each variant is a small library of its own (the NII and the exact
+    kernel), built when first launched, so a decode builds only what it
+    runs and the variants compile side by side."""
+    return ("siso", (f"-DSISO_MODE={mode_code}", f"-DSISO_CHAN={chan_code}",
+                     f"-DSISO_EXT={ext_code}"))
+
+
+def build_targets() -> list[_build.Target]:
+    """Every variant of the kernel source, for building them all at once
+    (`_build.build(build_targets())`)."""
+    return [_target(m, c, e) for m in _MODE_CODES.values()
+            for c in _CHAN_TYPES.values() for e in _EXT_TYPES.values()]
+
+
+def _lib(mode: str, chan: torch.dtype, ext: torch.dtype) -> ctypes.CDLL:
+    lib = _build.load(*_target(_MODE_CODES[mode], _CHAN_TYPES[chan],
+                               _EXT_TYPES[ext]))
     fn = lib.turbotpu_siso_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [i, i, i, p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, p]
+        fn.argtypes = [i, i, i, i, p, p, p, p, p, p, p, p, i, i, i, i, f, f,
+                       i, p]
         fn.restype = ctypes.c_int
     return lib
 
 
-def _launch(ls, lp, la, ain, K_real, W, eff, inv_q):
-    """Launch siso_nii (ain given) or siso_exact (ain None) on CUDA tensors."""
+def _launch(ls, lp, la, ain, K_real, W, eff, inv_q, mode):
+    """Launch the NII (ain given) or exact (ain None) kernel of `mode` on
+    CUDA tensors."""
     T, B = ls.shape
     n_win = T // W
     dev = ls.device
@@ -209,11 +256,12 @@ def _launch(ls, lp, la, ain, K_real, W, eff, inv_q):
     # NII: the fresh window starts; exact: phase 1's checkpoints.
     ck = torch.empty((n_win, 8, B), dtype=torch.float32, device=dev)
     nii = ain is not None
-    fn = _lib().turbotpu_siso_launch
+    fn = _lib(mode, ls.dtype, la.dtype).turbotpu_siso_launch
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        LAUNCHES["siso_nii" if nii else "siso_exact"] += 1
-        rc = fn(_CHAN_TYPES[ls.dtype], _EXT_TYPES[la.dtype], int(nii),
+        LAUNCHES[kernel_name(nii, mode)] += 1
+        rc = fn(_MODE_CODES[mode], _CHAN_TYPES[ls.dtype], _EXT_TYPES[la.dtype],
+                int(nii),
                 ls.data_ptr(), lp.data_ptr(), la.data_ptr(), le.data_ptr(),
                 ain.data_ptr() if nii else None, ck.data_ptr() if nii else None,
                 aw.data_ptr(), None if nii else ck.data_ptr(),
@@ -221,7 +269,8 @@ def _launch(ls, lp, la, ain, K_real, W, eff, inv_q):
     if rc != 0:
         raise RuntimeError(
             f"siso kernel launch failed: cudaError {rc} "
-            f"(T={T}, B={B}, W={W}, chan={ls.dtype}, ext={la.dtype}, nii={nii})")
+            f"(T={T}, B={B}, W={W}, chan={ls.dtype}, ext={la.dtype}, "
+            f"nii={nii}, mode={mode})")
     return le, (ck if nii else None)
 
 
@@ -240,15 +289,11 @@ def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
 
     nii_ckpt: optional (n_win, 8, B) fp32 window-start alphas from the
     previous half-iteration (cold start: zeros).  With it the call returns
-    (le, new_ckpt) and runs the `siso_nii` kernel; without it, le alone
-    from the `siso_exact` kernel.
+    (le, new_ckpt) and runs the NII kernel of `mode`; without it, le alone
+    from the exact kernel of `mode`.
     """
     if mode not in MODES:
         raise ValueError(f"unknown max* mode {mode!r}")
-    if mode != MAXLOG:
-        raise NotImplementedError(
-            f"mode={mode!r} on the kernel path: only the max-log kernels are "
-            "ported (the linlog/log-MAP max* of _mstar/_mstar_tree is not)")
     if ls.dim() != 2 or lp.shape != ls.shape or la.shape != ls.shape:
         raise ValueError("ls, lp, la must share one (KTp, B) shape")
     if str(la.dtype).startswith("torch.float8"):
@@ -279,11 +324,12 @@ def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
         raise ValueError("all tensors must be contiguous")
 
     if ls.device.type == "cpu":
-        le, ck = _siso_plain(ls, lp, la, nii_ckpt, K_real, W, scale, ext_qscale)
+        le, ck = _siso_plain(ls, lp, la, nii_ckpt, K_real, W, scale,
+                             ext_qscale, mode)
     elif ls.device.type == "cuda":
         eff = scale * (ext_qscale if ext_qscale else 1.0)
         inv_q = 1.0 / ext_qscale if ext_qscale else 1.0
-        le, ck = _launch(ls, lp, la, nii_ckpt, K_real, W, eff, inv_q)
+        le, ck = _launch(ls, lp, la, nii_ckpt, K_real, W, eff, inv_q, mode)
     else:
         raise ValueError(f"unsupported device {ls.device}")
     return le if nii_ckpt is None else (le, ck)
@@ -292,7 +338,7 @@ def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
 def siso_decode_cuda(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
                      mode: str = MAXLOG) -> tuple[torch.Tensor, torch.Tensor]:
     """Drop-in replacement for siso_decode_scan (same batch-major shapes and
-    semantics) through the exact kernel; max-log only."""
+    semantics) through the exact kernel of `mode`."""
     B, KT = ls.shape
     K = la.shape[1]
     W = window_len(KT)
