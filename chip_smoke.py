@@ -3,20 +3,36 @@
 
     python3 chip_smoke.py [--ptxas] [--phases kernels,decode,...]
 
+Phases: kernels, decode, bench, mixed, gather, encoder, fold, calibrate, tb,
+compact, ber.
+
 Needs one NVIDIA card, nvcc and no network.  It builds the port's CUDA
-kernels from turbotpu_torch/csrc, holds each against its plain PyTorch
-version on the card, and drives the port's two entry points:
+kernels from turbotpu_torch/csrc (siso.cu in all its variants, row_gather.cu,
+issue_rate.cu), holds each against its plain PyTorch version on the card, and
+drives the port's entry points:
 
 * `turbotpu_torch.turbo_decode` on the flagship configuration (LTE K=6144,
   1024 codewords, max-log, 6 iterations, NII window 256, bf16 channel
-  streams, int8 extrinsics), checked and timed (phases `decode`, `bench`);
+  streams, int8 extrinsics), checked and timed (phases `decode`, `bench`),
+  and the same decode with `fold_gather=True`, which must give the same bits,
+  iteration counts and L through the folded kernel alone (phase `fold`, with
+  the row-gather experiment and the corrected modes' folded kernels);
 * `turbotpu_torch.harness.ber.simulate_point`, the Monte-Carlo BER/FER sweep,
   on the acceptance configurations C1, C2, C3, C3-RM and both C4s at full
   width with a frame cap each, the frame-error rate held to the recorded
   counts of results/tpu_accept.jsonl (phase `ber`), plus a small mixed-K
   decode against the same decode on the CPU (phase `mixed`), the two
   candidate forms of the mixed-K extrinsic exchange (phase `gather`) and the
-  encoder's time per batch (phase `encoder`).
+  encoder's time per batch (phase `encoder`);
+* `turbotpu_torch.harness.tb.simulate_tb_point`, the transport-block sweep,
+  on C6 (A=12000, two code blocks, rate 1/2) at two grid points held to the
+  recorded counts, and `transport.decode_transport_block` on one block made
+  on the host (phase `tb`);
+* `turbotpu_torch.harness.compact.bench_compaction` and the compacted sweeps
+  (`simulate_point(compact_stage1=, compact_flush=)`), whose counts must
+  equal the plain ones on the same frames (phase `compact`);
+* `turbotpu_torch.experiments.cost_breakdown`, the issue-rate calibration
+  (phase `calibrate`).
 
 Each phase prints one JSON line; any failure is an exception and a non-zero
 exit.  The last line is {"ok": true, "device": {...}}.  --ptxas also prints
@@ -46,7 +62,8 @@ PEAK_FP32_INSTR_PER_S = 67e12 / 2
 MODES = ("maxlog", "linlog", "logmap")
 _PALLAS = "turbotpu/siso/pallas_kernel.py"
 KERNEL_SOURCE = "turbotpu_torch/csrc/siso.cu"
-ALL_PHASES = ("kernels", "decode", "bench", "mixed", "gather", "encoder", "ber")
+ALL_PHASES = ("kernels", "decode", "bench", "mixed", "gather", "encoder",
+              "fold", "calibrate", "tb", "compact", "ber")
 
 # kernel vs plain version on the card.  max-log and linlog: the same fp32
 # operations in the same order, so codes, le and checkpoints must be equal.
@@ -75,8 +92,10 @@ def emit(phase: str, **rec) -> None:
     print(json.dumps({"phase": phase, **rec}), flush=True)
 
 
-def replaces(nii: bool, mode: str) -> str:
-    base = (f"{_PALLAS}:505 (_build_call nii={nii}, pallas_call at :576)")
+def replaces(nii: bool, mode: str, fold: bool = False) -> str:
+    base = (f"{_PALLAS}:505 (_build_call nii={nii}, fold_gather=True, "
+            f"pallas_call at :570)" if fold else
+            f"{_PALLAS}:505 (_build_call nii={nii}, pallas_call at :576)")
     if mode == "maxlog":
         return base
     return (f"{_PALLAS}:57 (_mstar/_mstar_tree, per-leaf _extrinsic :134, "
@@ -84,7 +103,7 @@ def replaces(nii: bool, mode: str) -> str:
 
 
 def siso_bound_ms(T, B, n_win, chan_bytes, ext_bytes, nii, int8_out,
-                  mode="maxlog"):
+                  mode="maxlog", fold=False):
     """Least time the card could take for one SISO call: the larger of bytes
     moved (each input read once, each output written once) over the memory
     rate and fp32 instructions over their issue rate.
@@ -96,6 +115,8 @@ def siso_bound_ms(T, B, n_win, chan_bytes, ext_bytes, nii, int8_out,
     and 20: range reduction, polynomial, fix-ups; not counted from SASS)."""
     nbytes = B * (T * (2 * chan_bytes + 2 * ext_bytes)
                   + (2 * n_win * 32 if nii else 0))
+    if fold:
+        nbytes += 4 * T           # the gather table, shared by the batch
     mstar = {"maxlog": 1, "linlog": 6, "logmap": 33}[mode]
     rows = 4                      # la*sm, +ls, negate, negate lp
     step = 1 + 12 + 8 * mstar     # A+P; 12 edge adds; 8 max*
@@ -134,16 +155,9 @@ def make_streams(inputs, K, W, dt, dev, perm=None):
 
 
 def time_launches(fn, n):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / n
+    """ms per call over n calls between two CUDA events, after a warm-up."""
+    from turbotpu_torch.harness.bench import event_ms
+    return event_ms(fn, n)
 
 
 def le_error(got, want, tol):
@@ -179,6 +193,7 @@ def check_kernels(dev, results):
     """Phase `kernels`: each kernel against its plain version on the card."""
     from turbotpu_torch.harness.bench import make_decode_inputs
     from turbotpu_torch.siso import cuda_kernel as ck
+    from turbotpu_torch.spec.qpp import qpp_perm
     from turbotpu_torch.spec.umts import umts_perm
 
     types = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -198,8 +213,8 @@ def check_kernels(dev, results):
         "logmap": [((168, 32, 64), combos), ((5114, 128, 128), (f32,)),
                    ((5114, 256, 128), (f32,))],
     }
-    worst = {name: 0.0 for name in results}
-    ties = {name: 0 for name in results}
+    worst = {name: 0.0 for name in ck.LAUNCHES}
+    ties = {name: 0 for name in ck.LAUNCHES}
     cases, other_shapes = [], []
     lte_inputs, umts_inputs = {}, {}
     for mode in MODES:
@@ -240,14 +255,54 @@ def check_kernels(dev, results):
                 t1 = time.perf_counter()
                 le_xp = ck.siso_exact_plain(ls2, lp2, la, K, W, scale, qs, mode)
                 torch.cuda.synchronize()
-                t2 = time.perf_counter()
+                t2 = t2p = time.perf_counter()
                 shape = {"mode": mode, "K": K, "W": W, "B": B, "chan": chan,
                          "ext": ext}
                 case = dict(shape)
-                for name, got, want, ck_got, ck_want in (
-                        (ck.kernel_name(True, mode), le_k, le_p, aout_k[1:],
-                         aout_p[1:]),
-                        (ck.kernel_name(False, mode), le_x, le_xp, None, None)):
+                compared = [
+                    (ck.kernel_name(True, mode), le_k, le_p, aout_k[1:],
+                     aout_p[1:]),
+                    (ck.kernel_name(False, mode), le_x, le_xp, None, None)]
+
+                # The folded read: la is the other SISO's raw output, read
+                # through the interleaver table.  Held against its plain
+                # version like the others, and against the NII kernel on the
+                # materialised gather, where every mode must give equal bits
+                # (the arithmetic is the same code).
+                flagship = (K, chan, ext) == (6144, "bfloat16", "int8")
+                fold_here = (K == 168 or (K, W) == (5114, 256)
+                             or (mode == "maxlog" and flagship))
+                t3 = t2
+                if fold_here:
+                    table = np.concatenate([
+                        qpp_perm(K) if perm is None else perm,
+                        np.arange(K, T)])
+                    idx = torch.from_numpy(table.astype(np.int32)).to(dev)
+                    fold_name = ck.kernel_name(True, mode, fold=True)
+                    le_f, aout_f = ck.siso_cells(
+                        ls2, lp2, la, K, mode, scale, nii_ckpt=ain, window=W,
+                        ext_qscale=qs, gather_idx=idx)
+                    le_m, aout_m = ck.siso_cells(
+                        ls2, lp2, la.index_select(0, idx.long()), K, mode,
+                        scale, nii_ckpt=ain, window=W, ext_qscale=qs)
+                    if not (torch.equal(le_f, le_m)
+                            and torch.equal(aout_f[1:], aout_m[1:])):
+                        raise AssertionError(
+                            f"{fold_name} differs from "
+                            f"{ck.kernel_name(True, mode)} on the "
+                            f"materialised gather at K={K} W={W} B={B} "
+                            f"{chan}+{ext}")
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    le_fp, aout_fp = ck.siso_nii_plain(
+                        ls2, lp2, la, ain, K, W, scale, qs, mode,
+                        gather_idx=idx)
+                    torch.cuda.synchronize()
+                    t3 = time.perf_counter()
+                    compared.append((fold_name, le_f, le_fp, aout_f[1:],
+                                     aout_fp[1:]))
+                    case["fold_vs_materialised_max_abs_diff"] = 0.0
+                for name, got, want, ck_got, ck_want in compared:
                     e_le, le_tol = le_error(got, want, tol)
                     e_ck = (0.0 if ck_got is None
                             else float((ck_got - ck_want).abs().max()))
@@ -275,52 +330,129 @@ def check_kernels(dev, results):
                 args = ((ls1, lp1), (ls2, lp2))
                 state = {"i": 0}
 
-                def one(nii):
+                def one(nii, fold=False):
                     # alternate the two SISOs' streams as a decode does
                     s = args[state["i"] % 2]
                     state["i"] += 1
                     ck.siso_cells(*s, la, K, mode, scale,
                                   nii_ckpt=ain if nii else None, window=W,
-                                  ext_qscale=qs)
-                flagship = (K, chan, ext) == (6144, "bfloat16", "int8")
-                for nii, plain_s in ((True, t1 - t0), (False, t2 - t1)):
-                    name = ck.kernel_name(nii, mode)
+                                  ext_qscale=qs,
+                                  gather_idx=idx if fold else None)
+                plain_s = {(True, False): t1 - t0, (False, False): t2p - t1,
+                           (True, True): t3 - t2}
+                for nii, fold in ck.CONTRACTS:
+                    if fold and not fold_here:
+                        continue
+                    name = ck.kernel_name(nii, mode, fold)
                     main = (flagship if mode == "maxlog" else
                             (K, W) == (5114, 256 if nii else 128))
                     if not (main or (flagship and mode == "linlog")):
                         continue
                     bound, by = siso_bound_ms(
                         T, B, n_win, ls1.element_size(), la.element_size(),
-                        nii, ext == "int8", mode)
+                        nii, ext == "int8", mode, fold)
                     timing = dict(
-                        ms=time_launches(lambda: one(nii), 20),
-                        plain_ms=plain_s * 1e3, bound_ms=bound, bound_by=by)
+                        ms=time_launches(lambda: one(nii, fold), 20),
+                        plain_ms=plain_s[nii, fold] * 1e3, bound_ms=bound,
+                        bound_by=by)
                     if main:
                         results[name].update(timing, shape=shape)
                     else:
                         other_shapes.append({"name": name, **shape, **timing})
+
+                # The folded kernel through the identity table: the same
+                # code reading rows in order, which separates what the
+                # scattered rows cost from what the indexed address costs.
+                if mode == "maxlog" and flagship:
+                    ident = torch.arange(T, dtype=torch.int32, device=dev)
+                    bound, by = siso_bound_ms(
+                        T, B, n_win, ls1.element_size(), la.element_size(),
+                        True, True, mode, True)
+                    other_shapes.append({
+                        "name": ck.kernel_name(True, mode, True), **shape,
+                        "table": "identity", "ms": time_launches(
+                            lambda: ck.siso_cells(
+                                ls2, lp2, la, K, mode, scale, nii_ckpt=ain,
+                                window=W, ext_qscale=qs, gather_idx=ident),
+                            20),
+                        "plain_ms": None, "bound_ms": bound, "bound_by": by})
+
+                # The folded read where the stream no longer fits the L2
+                # cache: the flagship streams tiled to 16 times the batch
+                # (int8 stream 105 MB), the NII kernel beside it in turns.
+                if mode == "maxlog" and flagship:
+                    wide = [x.repeat(1, 16) for x in (ls2, lp2, la)]
+                    ain_w = ain.repeat(1, 1, 16)
+                    Bw = wide[0].shape[1]
+
+                    def one_wide(fold):
+                        ck.siso_cells(*wide, K, mode, scale, nii_ckpt=ain_w,
+                                      window=W, ext_qscale=qs,
+                                      gather_idx=idx if fold else None)
+                    ms_w = [time_launches(lambda: one_wide(f), 5)
+                            for f in (False, True, True, False)]
+                    for f, ms in ((False, (ms_w[0] + ms_w[3]) / 2),
+                                  (True, (ms_w[1] + ms_w[2]) / 2)):
+                        bound, by = siso_bound_ms(
+                            T, Bw, n_win, ls1.element_size(),
+                            la.element_size(), True, True, mode, f)
+                        other_shapes.append({
+                            "name": ck.kernel_name(True, mode, f), **shape,
+                            "B": Bw, "ms": ms, "plain_ms": None,
+                            "bound_ms": bound, "bound_by": by})
+                    del wide, ain_w
     for name in worst:
         results[name]["max_abs_err"] = worst[name]
         results[name]["rounded_values_differing"] = ties[name]
     emit("kernels", tolerance=TOLERANCE, cases=cases,
-         kernels={k: {kk: v.get(kk) for kk in (
+         kernels={k: {kk: results[k].get(kk) for kk in (
              "max_abs_err", "rounded_values_differing", "ms", "plain_ms",
-             "bound_ms", "bound_by")} for k, v in results.items()},
+             "bound_ms", "bound_by")} for k in worst},
          other_shapes=other_shapes)
+
+
+def launch_counters():
+    """The launch counts of every kernel wrapper of the port."""
+    from turbotpu_torch.experiments import cost_breakdown, gather_inkernel
+    from turbotpu_torch.siso import cuda_kernel as ck
+    return (ck.LAUNCHES, gather_inkernel.LAUNCHES, cost_breakdown.LAUNCHES)
 
 
 def count_launches(results, fn):
     """Run `fn` with every launch count set to 0 just before and read just
     after; add what it launched to the main path's totals."""
-    from turbotpu_torch.siso import cuda_kernel as ck
-    for name in ck.LAUNCHES:
-        ck.LAUNCHES[name] = 0
+    for counts in launch_counters():
+        for name in counts:
+            counts[name] = 0
     out = fn()
     torch.cuda.synchronize()
-    launched = dict(ck.LAUNCHES)
+    launched = {k: v for counts in launch_counters() for k, v in counts.items()}
     for name, n in launched.items():
         results[name]["launches"] = results[name].get("launches", 0) + n
     return out, launched
+
+
+def only(launched, **expected):
+    """Whether exactly the expected kernels were launched, each as often as
+    expected."""
+    return all(n == expected.get(name, 0) for name, n in launched.items())
+
+
+def small_decode_vs_cpu(cfg):
+    """A small decode (64 codewords) on the card against the same decode
+    through the plain versions on the CPU: hard bits and iteration counts
+    identical, L within 1e-4.  Returns L's largest difference."""
+    from turbotpu_torch import turbo_decode
+    from turbotpu_torch.harness.bench import make_decode_inputs
+    small = make_decode_inputs(cfg.K, 64, seed=3, ebn0_db=1.5, with_crc=True)
+    got = turbo_decode(*small, cfg)
+    ref = turbo_decode(*small, cfg, device="cpu")
+    diff = float((got[2].cpu() - ref[2]).abs().max())
+    if not (torch.equal(got[0].cpu(), ref[0])
+            and torch.equal(got[1].cpu(), ref[1]) and diff <= 1e-4):
+        raise AssertionError(f"small decode (fold_gather={cfg.fold_gather}) "
+                             f"differs from the CPU reference: L {diff}")
+    return diff
 
 
 def check_decode(dev, results):
@@ -334,9 +466,6 @@ def check_decode(dev, results):
     inputs = tuple(x.to(dev) for x in inputs)
     bits = torch.from_numpy(bits).to(dev)
     rec = {"K": K, "B": B, "ebn0_db": ebn0}
-
-    def only(launched, **expected):
-        return all(n == expected.get(name, 0) for name, n in launched.items())
 
     (hard, iters, L), launched = count_launches(
         results, lambda: turbo_decode(*inputs, flagship_config()))
@@ -370,18 +499,8 @@ def check_decode(dev, results):
     if rec["crc_max_iters"] >= 6:
         raise AssertionError(f"CRC early termination did not fire: {rec}")
 
-    # a small decode on the card against the same decode through the plain
-    # versions on the CPU: hard bits and iteration counts identical
-    Ks, Bs = 168, 64
-    small = make_decode_inputs(Ks, Bs, seed=3, ebn0_db=1.5, with_crc=True)
-    cfg_s = flagship_config(K=Ks, window=32, early_term="crc")
-    got = turbo_decode(*small, cfg_s)
-    ref = turbo_decode(*small, cfg_s, device="cpu")
-    rec["small_vs_cpu_L_max_abs_diff"] = float(
-        (got[2].cpu() - ref[2]).abs().max())
-    if not (torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
-            and rec["small_vs_cpu_L_max_abs_diff"] <= 1e-4):
-        raise AssertionError(f"small decode differs from the CPU reference: {rec}")
+    rec["small_vs_cpu_L_max_abs_diff"] = small_decode_vs_cpu(
+        flagship_config(K=168, window=32, early_term="crc"))
     emit("decode", **rec)
 
 
@@ -494,6 +613,153 @@ def time_encoder(dev, card):
     emit("encoder", card=card, shapes=out)
 
 
+def check_fold(dev, card, results):
+    """Phase `fold`: the flagship decode with the interleave folded into the
+    kernel (`DecoderConfig(fold_gather=True)`) against the same decode with
+    the materialised gathers; both timed in turns; the row gather alone
+    against `torch.index_select` (experiments/gather_inkernel.py); the
+    corrected modes' folded kernels through the sweep."""
+    from turbotpu_torch import turbo_decode
+    from turbotpu_torch.decoder.turbo import DecoderConfig
+    from turbotpu_torch.experiments import gather_inkernel as gi
+    from turbotpu_torch.harness import ber
+    from turbotpu_torch.harness.bench import (bench_decode, flagship_config,
+                                              make_decode_inputs)
+    from turbotpu_torch.siso.cuda_kernel import kernel_name
+    from turbotpu_torch.spec.qpp import qpp_perm
+
+    K, B, ebn0 = 6144, 1024, 1.0
+    inputs = tuple(x.to(dev) for x in make_decode_inputs(
+        K, B, seed=5, ebn0_db=ebn0, with_crc=True))
+    rec = {"K": K, "B": B, "ebn0_db": ebn0, "card": card}
+    for early in ("none", "crc"):
+        ref = turbo_decode(*inputs, flagship_config(early_term=early))
+        got, launched = count_launches(results, lambda: turbo_decode(
+            *inputs, flagship_config(early_term=early, fold_gather=True)))
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(
+                f"fold_gather=True changed the {early} decode: hard bits "
+                f"{int((got[0] != ref[0]).sum())} differ, iterations "
+                f"{int((got[1] != ref[1]).sum())}, L max abs diff "
+                f"{float((got[2] - ref[2]).abs().max())}")
+        n_it = 6 if early == "none" else int(got[1].max())
+        if not only(launched, siso_nii_fold=2 * n_it):
+            raise AssertionError(
+                f"{early} decode with fold_gather: {2 * n_it} siso_nii_fold "
+                f"launches and no other expected, counted {launched}")
+        rec[f"{early}_launches"] = {k: v for k, v in launched.items() if v}
+        rec[f"{early}_iters_max"] = n_it
+
+    # Both variants timed in turns within this one call: plain, fold, fold,
+    # plain.  The wide batch is the same 1024 noisy frames tiled 16 times.
+    def timed(early, B_, n_timed, inp=None):
+        out = {}
+        for fold in (False, True, True, False):
+            r = bench_decode(flagship_config(early_term=early,
+                                             fold_gather=fold),
+                             B_, n_timed=n_timed, ebn0_db=ebn0, inputs=inp)
+            out.setdefault("fold" if fold else "materialised", []).append(
+                r["wall_s_per_batch"] * 1e3)
+        return {k: {"ms_per_batch": v, "mbit_per_s":
+                    B_ * K / (sum(v) / len(v)) / 1e3} for k, v in out.items()}
+    rec["bench"] = {"lean": timed("none", B, 8), "crc": timed("crc", B, 8)}
+    tiled = tuple(x.repeat(16, 1)
+                  for x in make_decode_inputs(K, B, seed=0, ebn0_db=ebn0))
+    rec["bench"]["lean_large_batch"] = timed("none", 16 * B, 2, tiled)
+    del tiled
+
+    # K7 alone, as the comparison experiments/gather_inkernel.py makes
+    gather, launched = count_launches(results, lambda: gi.main([]))
+    if not only(launched, siso_nii=launched["siso_nii"],
+                row_gather=launched["row_gather"]) or not launched["row_gather"]:
+        raise AssertionError(f"gather_inkernel launched {launched}")
+    rec["gather_inkernel"] = gather
+    T = gather["T"]
+    main_row = next(r for r in gather["rows"] if (r["B"], r["dtype"], r["index"])
+                    == (B, "int8", "qpp6144"))
+    src = torch.randint(-127, 128, (T, B), device=dev, dtype=torch.int8)
+    idx = torch.from_numpy(np.concatenate(
+        [qpp_perm(K), np.arange(K, T)]).astype(np.int32)).to(dev)
+    want = gi.row_gather_plain(src, idx)
+    err = float((gi.row_gather(src, idx).float() - want.float()).abs().max())
+    if err != 0.0:
+        raise AssertionError(f"row_gather differs from its plain version: {err}")
+    results["row_gather"].update(
+        max_abs_err=err, ms=main_row["kernel_ms"],
+        library_ms=main_row["index_select_ms"],
+        plain_ms=time_launches(lambda: gi.row_gather_plain(src, idx), 20),
+        bound_ms=(2 * T * B + 4 * T) / PEAK_BYTES_PER_S * 1e3,
+        bound_by="bytes", shape={"T": T, "B": B, "dtype": "int8"})
+
+    rec["small_vs_cpu_L_max_abs_diff"] = small_decode_vs_cpu(
+        flagship_config(K=168, window=32, early_term="crc", fold_gather=True))
+
+    # The corrected modes' folded kernels through the sweep's entry point: a
+    # homogeneous UMTS K=5114 batch (the shape they are timed at), NII window
+    # 256, fp32 streams, one batch of 128 frames at 1.0 dB.
+    rec["sweep"] = []
+    for mode in ("linlog", "logmap"):
+        cfg = ber.SimConfig(
+            name=f"umts5114_{mode}_nii_fold", K=5114, B=128, seed=6,
+            max_frames=128, min_frame_errors=10 ** 9,
+            decoder=DecoderConfig(
+                K=5114, n_iters=8, mode=mode, interleaver="umts",
+                early_term="crc", siso="cuda", nii=True, window=256,
+                fold_gather=True))
+        step = ber.make_step(cfg, dev)
+        point, launched = count_launches(
+            results, lambda: ber.simulate_point(cfg, 1.0, step))
+        name = kernel_name(True, mode, fold=True)
+        if not only(launched, **{name: 2 * point["iter_batches"]}):
+            raise AssertionError(f"{cfg.name}: launches {launched}")
+        if not (np.isfinite(point["fer"]) and point["fer"] < 0.25):
+            raise AssertionError(f"{cfg.name}: FER {point['fer']} >= 0.25")
+        rec["sweep"].append({k: point[k] for k in (
+            "config", "frames", "frame_errs", "fer", "avg_iters",
+            "iter_batches")})
+    emit("fold", **rec)
+
+
+def check_calibrate(dev, card, results):
+    """Phase `calibrate`: the issue-rate kernel against its plain version,
+    and the figures experiments/cost_breakdown.py makes of it."""
+    from turbotpu_torch.experiments import cost_breakdown as cb
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    x = torch.rand((4 * 32,), generator=gen, device=dev) + 0.5
+    worst = 0.0
+    for lanes in cb.LANES:
+        got = cb.issue_rate(x, lanes, 4096)
+        want = cb.issue_rate_plain(x, lanes, 4096)
+        worst = max(worst, float((got - want).abs().max()))
+    if worst != 0.0:
+        raise AssertionError(f"issue_rate differs from its plain version: "
+                             f"{worst}")
+    rec, launched = count_launches(results, lambda: cb.main([]))
+    if not launched["issue_rate"]:
+        raise AssertionError(f"cost_breakdown launched {launched}")
+    # the kernel's line: full occupancy, 8 chains, at the size calibrated
+    cal = rec["calibration"]
+    n, lanes, n_ops = 2048 * cal["sms"], 8, cal["n_ops"]
+    x = torch.ones((n,), dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    want = cb.issue_rate_plain(x, lanes, n_ops)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = float((cb.issue_rate(x, lanes, n_ops, threads=1024) - want
+                 ).abs().max())
+    if max(err, worst) != 0.0:
+        raise AssertionError(f"issue_rate differs from its plain version at "
+                             f"the calibrated size: {err}")
+    ops = n * 2 * lanes * cb.chain_steps(n_ops, lanes)
+    results["issue_rate"].update(
+        max_abs_err=max(err, worst), ms=cal["shapes"]["full"][lanes]["ms"],
+        plain_ms=plain_ms, bound_ms=ops / PEAK_FP32_INSTR_PER_S * 1e3,
+        bound_by="operations",
+        shape={"threads": n, "lanes": lanes, "n_ops": n_ops})
+    emit("calibrate", **rec)
+
+
 def fer_band(fe, n, fe_ref, n_ref):
     """|FER - FER_ref| against BAND_SIGMAS standard deviations of the
     difference of two binomial rates with the pooled error probability."""
@@ -502,22 +768,148 @@ def fer_band(fe, n, fe_ref, n_ref):
     return abs(fe / n - fe_ref / n_ref), BAND_SIGMAS * sd
 
 
-def stage_times(step, cfg, esn0, dev):
-    """ms per batch of the sweep's stages, CUDA-event timed: encode (payload,
-    CRC, encoder, mux), channel (rate match, modulate, noise, demap,
-    de-rate-match, embed: generation minus encode), decode, count (the error
-    counters from the decoder's outputs)."""
-    from turbotpu_torch.harness import ber
-    gen = ber.point_generator(cfg, 0.0, dev)
-    streams, bits = step.gen(gen, esn0)
+def stage_times(step, gen, esn0):
+    """ms per batch of a sweep's stages, CUDA-event timed, for a step of
+    harness.ber or harness.tb: encode (payload, CRC, segmentation, encoder,
+    mux), channel (rate match, modulate, noise, demap, de-rate-match, embed:
+    generation minus encode), decode, count (the error counters from the
+    decoder's outputs)."""
+    streams, sent = step.gen(gen, esn0)
     n = 3
     enc = time_launches(lambda: step.encode(gen), n)
     both = time_launches(lambda: step.gen(gen, esn0), n)
     dec = time_launches(lambda: step.decode(streams), n)
     hard, iters = step.decode(streams)
-    cnt = time_launches(lambda: step.tally(hard, iters, bits), n)
+    cnt = time_launches(lambda: step.tally(hard, iters, sent), n)
     return {"encode_ms": enc, "channel_ms": both - enc, "decode_ms": dec,
             "count_ms": cnt}
+
+
+# Transport-block error counts of the same grid points of C6 in
+# results/tpu_accept.jsonl (TB errors, transport blocks).
+REFERENCE_TBLER = {1.2: (21, 416), 1.4: (0, 4096)}
+
+
+def run_tb(dev, card, results):
+    """Phase `tb`: the transport-block sweep's entry point on C6 at full
+    width (A=12000, two code blocks 6016/6080, G=24000, 32 blocks per batch),
+    a cap each, and the host-side pipeline on one block."""
+    from turbotpu_torch import transport
+    from turbotpu_torch.configs.acceptance import C6_TB
+    from turbotpu_torch.harness import tb
+
+    step = tb.make_tb_step(C6_TB, dev)
+    recs = []
+    for ebn0, cap in ((1.2, 416), (1.4, 1024)):
+        cfg = dataclasses.replace(C6_TB, max_tbs=cap, min_tb_errors=10 ** 9)
+        esn0 = tb.tb_esn0_db(cfg, ebn0)
+        # warm-up outside the timed point: encoder matrices, tables
+        step.count(*step.gen(tb.point_generator(cfg, -1.0, dev), esn0))
+        rec, launched = count_launches(
+            results, lambda: tb.simulate_tb_point(cfg, ebn0, step))
+        rec["launches"] = {k: v for k, v in launched.items() if v}
+        rec["card"] = card
+        for key in ("ber", "tbler", "avg_iters", "mbit_per_s", "wall_s"):
+            if not np.isfinite(rec[key]):
+                raise AssertionError(f"C6: {key} is not finite: {rec}")
+        if rec["tbs"] != cap:
+            raise AssertionError(f"C6: ran {rec['tbs']} transport blocks, "
+                                 f"{cap} expected")
+        if rec["launches"] != {"siso_exact": 2 * rec["iter_batches"]}:
+            raise AssertionError(f"C6: launches {rec['launches']} for "
+                                 f"{rec['iter_batches']} batch-iterations")
+        te_ref, n_ref = REFERENCE_TBLER[ebn0]
+        diff, band = fer_band(rec["tb_errs"], cap, te_ref, n_ref)
+        rec.update(reference_tb_errs=te_ref, reference_tbs=n_ref,
+                   tbler_diff=diff, tbler_band=band)
+        if diff > band:
+            raise AssertionError(
+                f"C6 at {ebn0} dB: TBLER {rec['tbler']:.4f} "
+                f"({rec['tb_errs']}/{cap}) is outside +-{band:.4f} "
+                f"({BAND_SIGMAS} sigma) of the recorded {te_ref}/{n_ref}")
+        rec["stage_ms_per_batch"] = stage_times(
+            step, tb.point_generator(cfg, 0.0, dev), esn0)
+        recs.append(rec)
+        emit("tb_point", **rec)
+
+    # the host-side pipeline on one block made on the host: fp32 streams,
+    # one decode per block size on the card
+    A, G = C6_TB.A, C6_TB.G
+    info = np.random.default_rng(8).integers(0, 2, A).astype(np.int8)
+    llr, seg = transport.transmit_transport_block(info, 2.0, seed=8, G=G)
+    (got, crc_ok, detail), launched = count_launches(
+        results, lambda: transport.decode_transport_block(
+            llr, seg.B, n_iters=C6_TB.n_iters, mode=C6_TB.mode, siso="cuda",
+            rate_matched=True))
+    host = {"A": A, "G": G, "crc_ok": crc_ok,
+            "block_crc_ok": detail["block_crc_ok"],
+            "iters": detail["iters"].tolist(),
+            "bit_errors": int((got != info).sum()),
+            "launches": {k: v for k, v in launched.items() if v}}
+    if not (crc_ok and host["bit_errors"] == 0 and all(host["block_crc_ok"])
+            and host["launches"] == {"siso_exact": 2 * sum(host["iters"])}):
+        raise AssertionError(f"decode_transport_block: {host}")
+    emit("tb", card=card, points=len(recs),
+         tbs=sum(r["tbs"] for r in recs), host_pipeline=host)
+
+
+def run_compact(dev, card, results):
+    """Phase `compact`: convergence compaction against the single-stage
+    decode on the same frames (flagship configuration with CRC early
+    termination, 8 batches of 1024, stage 1 capped at 3 iterations, at two
+    operating points), and one point of C2 through the plain, the compacted
+    and the flushing sweep."""
+    from turbotpu_torch.configs import acceptance as acc
+    from turbotpu_torch.harness import ber
+    from turbotpu_torch.harness.bench import flagship_config
+    from turbotpu_torch.harness.compact import bench_compaction
+
+    # 1.0 dB with stage 1 capped at 3: the flagship's operating point, where
+    # most frames need a fourth iteration.  1.6 dB with the same cap: few
+    # frames are deferred, which is where the schedule is meant to save work.
+    for ebn0 in (1.0, 1.6):
+        rec, launched = count_launches(results, lambda: bench_compaction(
+            flagship_config(early_term="crc"), 1024, ebn0, n_super=8,
+            stage1_iters=3))
+        rec["launches"] = {k: v for k, v in launched.items() if v}
+        rec["card"] = card
+        # the contract: the same frames give the same counts
+        if (rec["bit_errs"], rec["frame_errs"]) != (rec["bit_errs_single"],
+                                                    rec["frame_errs_single"]):
+            raise AssertionError(f"compaction changed the counts: {rec}")
+        if set(rec["launches"]) != {"siso_nii"}:
+            raise AssertionError(f"compaction launched {rec['launches']}")
+        for key in ("wall_compacted_s", "wall_single_s",
+                    "mbit_per_s_compacted", "mbit_per_s_single"):
+            if not (np.isfinite(rec[key]) and rec[key] > 0):
+                raise AssertionError(f"compaction: {key} = {rec[key]}")
+        rec["compaction_saves_batch_iterations"] = (
+            rec["iter_batches_compacted"] < rec["iter_batches_single"])
+        emit("compact_bench", **rec)
+
+    # C2 at 0.8 dB, 1024 frames: three sweeps, one frame budget
+    cfg = dataclasses.replace(acc.C2, max_frames=1024,
+                              min_frame_errors=10 ** 9)
+    step = ber.make_step(cfg, dev)
+    sweeps = {}
+    for name, kw in (("plain", {}), ("compact", dict(compact_stage1=3)),
+                     ("compact_flush", dict(compact_stage1=3,
+                                            compact_flush=4))):
+        point, launched = count_launches(
+            results, lambda: ber.simulate_point(cfg, 0.8, step, **kw))
+        if launched["siso_exact"] != 2 * point["iter_batches"] and not kw:
+            raise AssertionError(f"C2 {name}: launches {launched}")
+        if not launched["siso_exact"]:
+            raise AssertionError(f"C2 {name}: no kernel launched")
+        sweeps[name] = {k: point.get(k) for k in (
+            "frames", "bit_errs", "frame_errs", "avg_iters", "iter_batches",
+            "n_stage2_batches", "deferred_frac", "wall_s", "mbit_per_s")}
+        sweeps[name]["siso_exact_launches"] = launched["siso_exact"]
+    counts = lambda r: (r["frames"], r["bit_errs"], r["frame_errs"])
+    if not (counts(sweeps["plain"]) == counts(sweeps["compact"])
+            == counts(sweeps["compact_flush"])):
+        raise AssertionError(f"the three sweeps' counts differ: {sweeps}")
+    emit("compact", card=card, config=cfg.name, ebn0_db=0.8, sweeps=sweeps)
 
 
 def run_ber(dev, card, results):
@@ -545,7 +937,7 @@ def run_ber(dev, card, results):
         (acc.C3, 0.5, 1024, kernel_name(False, "linlog"), None),
         (acc.C3_RM, 1.2, 768, kernel_name(False, "linlog"), None),
         (acc.C2, 0.6, 512, kernel_name(False, "maxlog"), None),
-        (acc.C1, 2.0, 544, None, None),
+        (acc.C1, 2.0, 256, None, None),
         (variant(acc.C3, "logmap", mode="logmap"), 0.5, 256,
          kernel_name(False, "logmap"), c3),
         (variant(acc.C3, "linlog_nii", nii=True, window=256), 0.5, 256,
@@ -593,7 +985,8 @@ def run_ber(dev, card, results):
                     f"({rec['frame_errs']}/{frames}) is outside +-{band:.4f} "
                     f"({BAND_SIGMAS} sigma) of the recorded {fe_ref}/{n_ref}")
         if cfg.B > 1:
-            rec["stage_ms_per_batch"] = stage_times(step, cfg, esn0, dev)
+            rec["stage_ms_per_batch"] = stage_times(
+                step, ber.point_generator(cfg, 0.0, dev), esn0)
         recs.append(rec)
         emit("ber_point", **rec)
     emit("ber", card=card, points=len(recs),
@@ -607,8 +1000,10 @@ def main(argv) -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 1
     from turbotpu_torch import _build
+    from turbotpu_torch.experiments import cost_breakdown, gather_inkernel
     from turbotpu_torch.harness.bench import card_info
-    from turbotpu_torch.siso.cuda_kernel import build_targets, kernel_name
+    from turbotpu_torch.siso.cuda_kernel import (CONTRACTS, build_targets,
+                                                 kernel_name)
 
     phases = ALL_PHASES
     if "--phases" in argv:
@@ -632,27 +1027,43 @@ def main(argv) -> int:
          nvcc_release=release, triton=triton_version,
          python=sys.version.split()[0])
 
+    # every kernel of the port, one nvcc process each, all started together
     t0 = time.perf_counter()
     flags = ("-Xptxas", "-v") if "--ptxas" in argv else ()
-    libs = _build.build(build_targets(), flags)
+    libs = _build.build(build_targets() + [gather_inkernel.TARGET,
+                                           cost_breakdown.TARGET], flags)
     for name, defines in libs:
         _build.load(name, defines, flags)
     emit("build", seconds=time.perf_counter() - t0, libraries=len(libs),
-         nvcc_seconds={" ".join(t[1]): s
+         nvcc_seconds={" ".join((t[0],) + t[1]): s
                        for t, s in _build.build_seconds.items()},
          directory=str(_build.BUILD_DIR.relative_to(
              _build.BUILD_DIR.parent.parent)))
 
-    results = {kernel_name(nii, mode): {
-        "name": kernel_name(nii, mode), "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": replaces(nii, mode),
-        "library_ms": None} for mode in MODES for nii in (True, False)}
+    results = {kernel_name(nii, mode, fold): {
+        "name": kernel_name(nii, mode, fold), "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": replaces(nii, mode, fold),
+        "library_ms": None} for mode in MODES for nii, fold in CONTRACTS}
+    results["row_gather"] = {
+        "name": "row_gather", "route": "cuda",
+        "source": "turbotpu_torch/csrc/row_gather.cu",
+        "replaces": "experiments/gather_inkernel.py:69 (row_gather_pallas, "
+                    "pallas_call at :112)"}
+    results["issue_rate"] = {
+        "name": "issue_rate", "route": "cuda",
+        "source": "turbotpu_torch/csrc/issue_rate.cu",
+        "replaces": "experiments/cost_breakdown.py:201 (_calibrate_vpu, "
+                    "pallas_call at :230)", "library_ms": None}
     run = {"kernels": lambda: check_kernels(dev, results),
            "decode": lambda: check_decode(dev, results),
            "bench": lambda: run_bench(dev, card, results),
            "mixed": lambda: check_mixed(dev),
            "gather": lambda: time_gathers(dev, card),
            "encoder": lambda: time_encoder(dev, card),
+           "fold": lambda: check_fold(dev, card, results),
+           "calibrate": lambda: check_calibrate(dev, card, results),
+           "tb": lambda: run_tb(dev, card, results),
+           "compact": lambda: run_compact(dev, card, results),
            "ber": lambda: run_ber(dev, card, results)}
     for phase in ALL_PHASES:
         if phase in phases:
@@ -667,7 +1078,7 @@ def main(argv) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for r in results.values():
-        if r["launches"] < 1:
+        if r.get("launches", 0) < 1:
             raise AssertionError(f"the main paths never launched {r['name']}")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in results.values()]}), flush=True)

@@ -169,7 +169,7 @@ def test_acceptance_configs_equal_reference(name):
     assert getattr(tacc, name) == want
     if want.decoder.siso != "scan":
         assert want.decoder.siso == "cuda"
-    assert set(tacc.ALL) == {"c1", "c2", "c3", "c3rm", "c4"}
+    assert set(tacc.ALL) == {"c1", "c2", "c3", "c3rm", "c4", "c6"}
 
 
 @pytest.mark.parametrize("modulation,channel,E,rvs", [
@@ -259,17 +259,6 @@ def test_simulate_ber_tolerates_a_torn_line_and_other_sweeps(tmp_path):
     got = tber.simulate_ber(TINY, path, device="cpu", verbose=False,
                             compact_flush=2)
     assert got[1]["frames"] == -1
-
-
-def test_compaction_is_refused_by_name(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"harness/compact\.py"):
-        tber.simulate_point(TINY, 1.0, compact_stage1=2, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"harness/compact\.py"):
-        tber.simulate_ber(TINY, tmp_path / "x.jsonl", compact_stage1=2,
-                          device="cpu", verbose=False)
-    with pytest.raises(NotImplementedError, match=r"harness/compact\.py"):
-        cli.main(["ber", "--k", "40", "--device", "cpu", "--compact", "2",
-                  "--results", str(tmp_path / "y.jsonl")])
 
 
 def test_cli_ber_runs_on_the_cpu(tmp_path, capsys):

@@ -140,7 +140,6 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
 
 
 @pytest.mark.parametrize("cfg_kw,what", [
-    (dict(siso="cuda", mode="maxlog", fold_gather=True, nii=True), "fold_gather"),
     (dict(siso="cuda", mode="maxlog", ext_dtype="float8_e4m3fn"), "float8"),
     (dict(siso="ascan"), "ascan"),
     (dict(siso="window"), "windowed"),

@@ -1,17 +1,24 @@
-"""Command-line entry point of the port: the Monte-Carlo BER/FER sweep.
+"""Command-line entry point of the port: the Monte-Carlo BER/FER sweep, the
+decode throughput benchmark and the transport-block sweep.
 
-Counterpart of the `ber` subcommand of turbotpu/cli.py, with --device in
-place of --platform.
+Counterpart of the `ber`, `bench` and `tb` subcommands of turbotpu/cli.py,
+with --device in place of --platform (`bench` times with CUDA events and
+takes the card only; its --profile waits for harness/profiling.py).
 
 Examples:
   python -m turbotpu_torch.cli ber --config c4
   python -m turbotpu_torch.cli ber --k 512 --iters 6 --mode maxlog --ebn0 0.5 1.0 1.5
   python -m turbotpu_torch.cli ber --k 40 --batch 8 --device cpu
+  python -m turbotpu_torch.cli ber --config c2 --compact 3 --compact-flush 4
+  python -m turbotpu_torch.cli bench --k 6144 --batch 1024 --siso cuda --nii \
+      --window 256 --io-dtype bfloat16 --ext-dtype int8 --early-term crc --compact 3
+  python -m turbotpu_torch.cli tb --config c6
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 
@@ -69,13 +76,121 @@ def main(argv=None):
     ber.add_argument("--results", default="results/ber_torch.jsonl")
     ber.add_argument("--no-resume", action="store_true")
     ber.add_argument("--compact", type=int, default=0, metavar="S1_ITERS",
-                     help="sweep-level convergence compaction (not ported "
-                          "yet: any value but 0 is refused)")
-    ber.add_argument("--compact-flush", type=int, default=0, metavar="R")
+                     help="sweep-level convergence compaction: stage-1 "
+                          "decode each super-batch at this iteration cap, "
+                          "re-batch CRC failures host-side, finish at the "
+                          "full cap (bit-identical counts; needs "
+                          "--early-term crc, homogeneous K)")
+    ber.add_argument("--compact-flush", type=int, default=0, metavar="R",
+                     help="with --compact: accumulate failures across "
+                          "check groups (up to R retained super-batches) "
+                          "and flush only when a dense full batch is "
+                          "ready -- more device work saved; stopping rule "
+                          "becomes conservative between flushes")
+
+    bench = sub.add_parser("bench", help="decode throughput benchmark "
+                                         "(on the card)")
+    bench.add_argument("--k", type=int, default=6144)
+    bench.add_argument("--batch", type=int, default=64)
+    bench.add_argument("--iters", type=int, default=6)
+    bench.add_argument("--mode", choices=["logmap", "maxlog", "linlog"],
+                       default="maxlog")
+    bench.add_argument("--siso", default="scan", choices=["scan", "cuda"])
+    bench.add_argument("--window", type=int, default=0)
+    bench.add_argument("--io-dtype", default="float32",
+                       choices=["float32", "bfloat16"],
+                       help="channel-LLR stream type on the kernel path")
+    bench.add_argument("--ext-dtype", default="",
+                       choices=["", "float32", "bfloat16", "int8"],
+                       help="extrinsic stream type (default: io-dtype)")
+    bench.add_argument("--nii", action="store_true",
+                       help="kernel path: windowed next-iteration "
+                            "initialisation of alpha")
+    bench.add_argument("--early-term", choices=["none", "crc", "sign"],
+                       default="none",
+                       help="measure EFFECTIVE throughput with early exit")
+    bench.add_argument("--ebn0", type=float, default=1.0,
+                       help="operating Eb/N0 for early-term benchmarks")
+    bench.add_argument("--reps", type=int, default=10)
+    bench.add_argument("--compact", type=int, default=0, metavar="S1_ITERS",
+                       help="sweep-level convergence compaction: decode "
+                            "super-batches at this stage-1 iteration cap, "
+                            "re-batch CRC failures densely, finish at the "
+                            "full cap (requires --early-term crc; "
+                            "harness/compact.py)")
+    bench.add_argument("--n-super", type=int, default=8,
+                       help="super-batches per compaction pass")
+
+    tb = sub.add_parser("tb", help="transport-block Monte-Carlo: TB > 6144 "
+                        "bits through segmentation, per-block rate "
+                        "matching, one mixed-K device decode, CRC-24A/B")
+    tb.add_argument("--device", default="cuda",
+                    help="cuda (default; fails without a card) or cpu "
+                         "(plain PyTorch versions of the kernels)")
+    tb.add_argument("--config", choices=["c6"],
+                    help="run the named acceptance config instead of "
+                         "the ad-hoc flags")
+    tb.add_argument("--a", type=int, default=12000, help="info bits per TB")
+    tb.add_argument("--n-tb", type=int, default=8)
+    tb.add_argument("--ebn0", type=float, nargs="+", default=[0.6, 0.8, 1.0])
+    tb.add_argument("--G", type=int, default=0,
+                    help="rate-matched channel bits per TB per transmission "
+                         "(0 = mother rate)")
+    tb.add_argument("--rv-seq", type=int, nargs="+", default=None)
+    tb.add_argument("--iters", type=int, default=6)
+    tb.add_argument("--mode", choices=["logmap", "maxlog", "linlog"],
+                    default="maxlog")
+    tb.add_argument("--siso", default="cuda", choices=["scan", "cuda"])
+    tb.add_argument("--io-dtype", default="float32",
+                    choices=["float32", "bfloat16"])
+    tb.add_argument("--nii", action="store_true")
+    tb.add_argument("--window", type=int, default=0)
+    tb.add_argument("--min-tb-errors", type=int, default=20)
+    tb.add_argument("--max-tbs", type=int, default=20_000)
+    tb.add_argument("--seed", type=int, default=0)
+    tb.add_argument("--results", default="results/tb_torch.jsonl")
+    tb.add_argument("--no-resume", action="store_true")
 
     args = ap.parse_args(argv)
 
     from .decoder.turbo import DecoderConfig
+
+    if args.cmd == "bench":
+        from .harness.bench import bench_decode, card_info
+        cfg = DecoderConfig(K=args.k, n_iters=args.iters, mode=args.mode,
+                            siso=args.siso, window=args.window,
+                            io_dtype=args.io_dtype, nii=args.nii,
+                            ext_dtype=args.ext_dtype,
+                            early_term=args.early_term)
+        if args.compact:
+            from .harness.compact import bench_compaction
+            rec = bench_compaction(cfg, args.batch, args.ebn0,
+                                   n_super=args.n_super,
+                                   stage1_iters=args.compact)
+        else:
+            rec = bench_decode(cfg, args.batch, n_timed=args.reps,
+                               ebn0_db=args.ebn0)
+        print(json.dumps({**rec, "card": card_info()}))
+        return 0
+
+    if args.cmd == "tb":
+        from .harness.tb import TBConfig, simulate_tbler
+        if args.config:
+            from .configs.acceptance import ALL
+            cfg = ALL[args.config]
+        else:
+            cfg = TBConfig(name=f"cli_tb_a{args.a}", A=args.a, n_tb=args.n_tb,
+                           ebn0_db_grid=tuple(args.ebn0), G=args.G,
+                           rv_sequence=tuple(args.rv_seq or (0,)),
+                           n_iters=args.iters, mode=args.mode, siso=args.siso,
+                           io_dtype=args.io_dtype, nii=args.nii,
+                           window=args.window,
+                           min_tb_errors=args.min_tb_errors,
+                           max_tbs=args.max_tbs, seed=args.seed)
+        simulate_tbler(cfg, results_path=args.results,
+                       resume=not args.no_resume, device=args.device)
+        return 0
+
     from .harness.ber import SimConfig, simulate_ber
     if args.config:
         from .configs.acceptance import ALL

@@ -1,13 +1,15 @@
-"""The named acceptance configurations of the BER sweep: C1-C4 plus C3-RM
-(mixed-K + per-group rate matching).
+"""The named acceptance configurations: C1-C4 plus C3-RM (mixed-K +
+per-group rate matching) of the BER sweep, and C6 of the transport-block
+sweep.
 
 The port's own copy of configs/acceptance.py: the same values, with
-siso="cuda" where the JAX package says "pallas".  C5 (sharded decode) and C6
-(segmented transport block) wait for the modules they run on.
+siso="cuda" where the JAX package says "pallas".  C5 (sharded decode) waits
+for the modules it runs on.
 """
 
 from ..decoder.turbo import DecoderConfig
 from ..harness.ber import SimConfig
+from ..harness.tb import TBConfig
 
 # C1: LTE rate-1/3, K=40 QPP, single codeword, 4 iters, AWGN BPSK.
 C1 = SimConfig(
@@ -94,10 +96,25 @@ C4_REPEATED = SimConfig(
     steps_per_check=8,
 )
 
+# C6: segmented transport block, fully device-side.  A = 12000 info bits
+# -> B = 12024 with CRC-24A -> C = 2 code blocks (K- = 6016, K+ = 6080,
+# F = 24 fillers), each rate-matched to its E_r share of G = 24000
+# (aggregate rate 1/2), decoded in ONE embedded mixed-K call with CRC-24B
+# early termination, reassembled and CRC-24A checked on device.
+# Run: python -m turbotpu_torch.cli tb --config c6.
+C6_TB = TBConfig(
+    name="c6_transport_block",
+    A=12000, n_tb=32, G=24000,
+    ebn0_db_grid=(1.2, 1.4, 1.6),
+    n_iters=8, mode="maxlog", siso="cuda", io_dtype="bfloat16",
+    min_tb_errors=20, max_tbs=4096,
+)
+
 ALL = {
     "c1": C1,
     "c2": C2,
     "c3": C3,
     "c3rm": C3_RM,
     "c4": (C4_PUNCTURED, C4_REPEATED),
+    "c6": C6_TB,
 }

@@ -53,6 +53,23 @@ def sim_config_from_dict(d: dict):
     return SimConfig(**d)
 
 
+def tb_config_from_dict(d: dict):
+    """`dataclasses.asdict` of the JAX package's TBConfig -> the port's
+    (harness.tb.TBConfig)."""
+    from .harness.tb import TBConfig
+    names = {f.name for f in dataclasses.fields(TBConfig)}
+    unknown = set(d) - names
+    if unknown:
+        raise ValueError(f"unknown TBConfig fields {sorted(unknown)}")
+    d = dict(d)
+    if "siso" in d:
+        d["siso"] = _SISO_NAMES.get(d["siso"], d["siso"])
+    for name in ("ebn0_db_grid", "rv_sequence"):
+        if name in d:
+            d[name] = tuple(d[name])
+    return TBConfig(**d)
+
+
 def tables_to_torch(tables, device="cpu") -> tuple[torch.Tensor, ...]:
     """Interleaver tables of a mixed-K batch as numpy (the per-codeword pair
     (perm_b, inv_b) of bucketing.embedded_perm_tables, or the grouped triple

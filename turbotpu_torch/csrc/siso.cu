@@ -12,6 +12,13 @@
 // window, run beta through it (continuous across windows, exact from e0 at
 // the padded trellis end) and emit the extrinsic
 //   Le = max*(u=0 edges) - max*(u=1 edges).
+// A third form of the NII contract folds the extrinsic interleave into the
+// kernel (the reference's fold_gather=True call, pallas_call at :570 of the
+// same file): the a-priori row of step t is read from row idx[t] of the
+// OTHER SISO's raw output, through a (T,) int32 table shared by the batch,
+// so the decoder runs no gather between the two half-iterations.  Everything
+// after the read is the NII kernel's code, so its outputs equal that kernel's
+// on a materialised gather bit for bit.
 // The mode is a compile-time parameter:
 //   max-log  max*(a, b) = max(a, b); the parity add is factored out of the
 //            extrinsic's reduction (exact there: rounding is monotone);
@@ -22,7 +29,17 @@
 // added per leaf, as a balanced pairwise tree in state order.
 //
 // Layout: every stream is time-major (T, B): element (t, b) at t*B + b, so
-// the 32 codewords of a warp read 32 neighbouring values at each step.
+// the 32 codewords of a warp read 32 neighbouring values at each step.  That
+// also holds for the folded read: row idx[t] is B contiguous values, the
+// index is the same for the whole warp, and the warp reads one 32-byte (int8)
+// to 128-byte (fp32) piece of it.  The reference issues one DMA per row for
+// this; here it is an indexed load.  The index sits on the load's address
+// chain (index load, 64-bit multiply-add, stream load), which the prefetch of
+// a block of rows one block ahead has to absorb; the table is read through
+// the read-only path from global memory (25.6 KB at T=6400: it stays in L1).
+// A first version that copied the table to shared memory once per block
+// measured about 3% slower than this plain form, at 1024 and at 16384
+// codewords.
 // Checkpoints are (n_win, 8, B) fp32, the alpha window scratch (W, 8, B) fp32.
 // One thread decodes one codeword and keeps the 8 state metrics in
 // registers; the trellis permutation is register renaming in the unrolled
@@ -53,6 +70,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#ifndef SISO_FOLD
+#define SISO_FOLD 0
+#endif
 
 namespace {
 
@@ -212,11 +233,14 @@ struct Rows {
   TE la[UNROLL];
 };
 
-template <typename TC, typename TE>
+// FOLD: la row t is read from row rows[t] (the gather table) instead of
+// row t.
+template <typename TC, typename TE, bool FOLD>
 struct Streams {
   const TC* __restrict__ ls;
   const TC* __restrict__ lp;
   const TE* __restrict__ la;
+  const int* __restrict__ rows;  // FOLD only: (T,) source row of each la row
   int64_t B, b;   // batch size, this thread's codeword
   int K;          // a-priori mask: la counts only at t < K
   float eff;      // extrinsic scale times the int8 step
@@ -227,7 +251,7 @@ struct Streams {
       const int64_t o = (int64_t)(t0 + j) * B + b;
       r.ls[j] = ls[o];
       r.lp[j] = lp[o];
-      r.la[j] = la[o];
+      r.la[j] = FOLD ? la[(int64_t)rows[t0 + j] * B + b] : la[o];
     }
   }
 
@@ -249,10 +273,11 @@ struct Streams {
 // UNROLL forward steps from t0 on the rows in `cur`, after starting the
 // fetch of the next block into `nxt`.  With aw != nullptr the alpha before
 // each step goes to the window scratch (row t0 - window start = tw).
-template <int MODE, typename TC, typename TE>
+template <int MODE, typename TC, typename TE, bool FOLD>
 __device__ __forceinline__ void alpha_block(
-    const Streams<TC, TE>& st, int t0, bool more, const Rows<TC, TE>& cur,
-    Rows<TC, TE>& nxt, float (&alpha)[8], float* aw, int tw) {
+    const Streams<TC, TE, FOLD>& st, int t0, bool more,
+    const Rows<TC, TE>& cur, Rows<TC, TE>& nxt, float (&alpha)[8], float* aw,
+    int tw) {
   float A[UNROLL], P[UNROLL];
   st.metrics(cur, t0, A, P);
   if (more) st.fetch(t0 + UNROLL, nxt);
@@ -283,9 +308,9 @@ __device__ __forceinline__ void fetch_alphas(const float* aw, int64_t B,
 // UNROLL backward steps over the block at t0 (window row tw): emit Le from
 // the stored alphas and the running beta, then step beta.  The next block
 // down (t0 - UNROLL) is fetched first.
-template <int MODE, typename TC, typename TE>
+template <int MODE, typename TC, typename TE, bool FOLD>
 __device__ __forceinline__ void beta_block(
-    const Streams<TC, TE>& st, int t0, int tw, bool more,
+    const Streams<TC, TE, FOLD>& st, int t0, int tw, bool more,
     const Rows<TC, TE>& cur, const float (&at)[UNROLL][8],
     Rows<TC, TE>& nxt, float (&atn)[UNROLL][8], float (&beta)[8],
     const float* aw, TE* __restrict__ le, float inv_q) {
@@ -304,17 +329,19 @@ __device__ __forceinline__ void beta_block(
   renorm(beta);
 }
 
-template <typename TC, typename TE, bool NII, int MODE>
+template <typename TC, typename TE, bool NII, int MODE, bool FOLD>
 __global__ void siso_kernel(
     const TC* __restrict__ ls, const TC* __restrict__ lp,
-    const TE* __restrict__ la, TE* __restrict__ le,
-    const float* __restrict__ ain, float* __restrict__ aout,
-    float* __restrict__ aw, float* __restrict__ ckpt,
-    int B_, int K, int n_win, int W, float eff, float inv_q) {
+    const TE* __restrict__ la, const int* __restrict__ idx,
+    TE* __restrict__ le, const float* __restrict__ ain,
+    float* __restrict__ aout, float* __restrict__ aw,
+    float* __restrict__ ckpt, int B_, int K, int n_win, int W, float eff,
+    float inv_q) {
+  static_assert(NII || !FOLD, "the folded read exists for the NII contract");
   const int64_t B = B_;
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const Streams<TC, TE> st{ls, lp, la, B, b, K, eff};
+  const Streams<TC, TE, FOLD> st{ls, lp, la, idx, B, b, K, eff};
   const int T = n_win * W;
   Rows<TC, TE> r0, r1;
 
@@ -390,19 +417,27 @@ __global__ void siso_kernel(
 
 template <typename TC, typename TE, int MODE>
 cudaError_t launch(bool nii, const void* ls, const void* lp, const void* la,
-                   void* le, const float* ain, float* aout, float* aw,
-                   float* ckpt, int B, int K, int n_win, int W, float eff,
-                   float inv_q, int threads, cudaStream_t stream) {
+                   const int* idx, void* le, const float* ain, float* aout,
+                   float* aw, float* ckpt, int B, int K, int n_win, int W,
+                   float eff, float inv_q, int threads, cudaStream_t stream) {
   const dim3 grid((B + threads - 1) / threads), block(threads);
+#if SISO_FOLD
+  if (!nii || idx == nullptr) return cudaErrorInvalidValue;
+  siso_kernel<TC, TE, true, MODE, true><<<grid, block, 0, stream>>>(
+      (const TC*)ls, (const TC*)lp, (const TE*)la, idx, (TE*)le, ain, aout,
+      aw, ckpt, B, K, n_win, W, eff, inv_q);
+#else
+  if (idx != nullptr) return cudaErrorInvalidValue;
   if (nii) {
-    siso_kernel<TC, TE, true, MODE><<<grid, block, 0, stream>>>(
-        (const TC*)ls, (const TC*)lp, (const TE*)la, (TE*)le, ain, aout, aw,
-        ckpt, B, K, n_win, W, eff, inv_q);
+    siso_kernel<TC, TE, true, MODE, false><<<grid, block, 0, stream>>>(
+        (const TC*)ls, (const TC*)lp, (const TE*)la, idx, (TE*)le, ain, aout,
+        aw, ckpt, B, K, n_win, W, eff, inv_q);
   } else {
-    siso_kernel<TC, TE, false, MODE><<<grid, block, 0, stream>>>(
-        (const TC*)ls, (const TC*)lp, (const TE*)la, (TE*)le, ain, aout, aw,
-        ckpt, B, K, n_win, W, eff, inv_q);
+    siso_kernel<TC, TE, false, MODE, false><<<grid, block, 0, stream>>>(
+        (const TC*)ls, (const TC*)lp, (const TE*)la, idx, (TE*)le, ain, aout,
+        aw, ckpt, B, K, n_win, W, eff, inv_q);
   }
+#endif
   return cudaGetLastError();
 }
 
@@ -412,7 +447,11 @@ cudaError_t launch(bool nii, const void* ls, const void* lp, const void* la,
 //   -DSISO_MODE=  0 max-log, 1 linlog, 2 log-MAP
 //   -DSISO_CHAN=  0 float32, 1 bfloat16          (ls, lp)
 //   -DSISO_EXT=   0 float32, 1 bfloat16, 2 int8  (la in, le out)
-// (the variants compile side by side, and a decode builds only its own).
+//   -DSISO_FOLD=  0 (default) the NII and the exact kernel,
+//                 1 the NII kernel with the folded read, alone
+// (the variants compile side by side, and a decode builds only its own; the
+// folded kernel is a library of its own so that a decode without the option
+// never waits for its compile).
 #if !defined(SISO_MODE) || !defined(SISO_CHAN) || !defined(SISO_EXT)
 #error "compile with -DSISO_MODE=, -DSISO_CHAN= and -DSISO_EXT="
 #endif
@@ -432,16 +471,19 @@ template <> struct StreamType<2> { using type = int8_t; };
 // library's (else -1).
 // nii != 0:  ain/aout are (n_win, 8, B) fp32, ckpt unused (may be null);
 // nii == 0:  ckpt is (n_win, 8, B) fp32 scratch, ain/aout unused.
+// idx: null, or in a SISO_FOLD library the (n_win * W,) int32 gather table
+// with values in [0, n_win * W) (nii != 0 only).
 // aw is (W, 8, B) fp32 scratch.  Returns the launch's cudaError_t (0 = ok).
 extern "C" int turbotpu_siso_launch(
     int mode, int chan_type, int ext_type, int nii, const void* ls,
-    const void* lp, const void* la, void* le, const void* ain, void* aout,
-    void* aw, void* ckpt, int B, int K, int n_win, int W, float eff,
-    float inv_q, int threads, void* stream) {
+    const void* lp, const void* la, const void* idx, void* le,
+    const void* ain, void* aout, void* aw, void* ckpt, int B, int K,
+    int n_win, int W, float eff, float inv_q, int threads, void* stream) {
   if (mode != SISO_MODE || chan_type != SISO_CHAN || ext_type != SISO_EXT)
     return -1;
   return (int)launch<StreamType<SISO_CHAN>::type, StreamType<SISO_EXT>::type,
                      SISO_MODE>(
-      nii != 0, ls, lp, la, le, (const float*)ain, (float*)aout, (float*)aw,
-      (float*)ckpt, B, K, n_win, W, eff, inv_q, threads, (cudaStream_t)stream);
+      nii != 0, ls, lp, la, (const int*)idx, le, (const float*)ain,
+      (float*)aout, (float*)aw, (float*)ckpt, B, K, n_win, W, eff, inv_q,
+      threads, (cudaStream_t)stream);
 }

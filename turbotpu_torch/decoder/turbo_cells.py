@@ -8,6 +8,14 @@ per-iteration work outside it is the extrinsic interleave gather
 time through a per-codeword `(KTp, B)` index) and the early-termination
 bookkeeping.  Channel-LLR packing and hard-bit unpacking cross layouts once
 each.
+
+With `cfg.fold_gather` (NII, shared interleaver table) the gathers leave the
+loop too: each SISO reads the other's raw extrinsic output through its own
+table inside the kernel (`siso_cells(..., gather_idx=)`), the loop carries
+the raw interleaved-order le2, and one de-interleave remains: after the loop
+for the outputs, plus one per iteration where early termination needs the
+natural order for its check.  For a mixed-K batch or the exact contract the
+option is ignored and the materialised gathers run, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -48,10 +56,6 @@ def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
     B, K = ls.shape
     if K != cfg.K:
         raise ValueError(f"ls has K={K}, the configuration K={cfg.K}")
-    if cfg.fold_gather:
-        raise NotImplementedError(
-            "fold_gather=True: the kernel variant that reads la through the "
-            "interleaver table is not ported")
     if cfg.early_term not in ("none", "crc", "sign"):
         raise ValueError(f"unknown early_term {cfg.early_term!r}")
     ext_dt, qs = cfg.ext_io()
@@ -102,10 +106,26 @@ def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
     ls2 = stream(g_sys(ls), tail2[:, 0::2], BIG)
     lp2s = stream(lp2, tail2[:, 1::2], 0.0)
 
+    # fold_gather: both SISOs read the other's RAW extrinsic tensor through
+    # their own gather table inside the kernel.  Shared-table NII batches
+    # only; per-codeword (mixed-K) tables keep the torch.gather path.
+    fold = cfg.fold_gather and cfg.nii and perm_b is None
+    if fold:
+        perm_i, inv_i = perm_e.to(torch.int32), inv_e.to(torch.int32)
+
     zT = torch.zeros((KTp, B), dtype=dte, device=dev)
     # NII state: per-window alpha start metrics per SISO, carried across
     # half-iterations (zeros = uniform cold start; slot 0 is never read).
     zC = torch.zeros((n_win, 8, B), dtype=f32, device=dev) if cfg.nii else None
+
+    def half_iters_fold(le2, ck1, ck2):
+        le1, ck1 = siso_cells(ls1, lp1s, le2, K, cfg.mode, scale,
+                              nii_ckpt=ck1, window=W, ext_qscale=qs,
+                              gather_idx=inv_i)
+        le2, ck2 = siso_cells(ls2, lp2s, le1, K, cfg.mode, scale,
+                              nii_ckpt=ck2, window=W, ext_qscale=qs,
+                              gather_idx=perm_i)
+        return le2, le1, ck1, ck2
 
     def half_iters(le21, ck1, ck2):
         """The two SISO half-iterations + extrinsic interleave gathers --
@@ -133,9 +153,12 @@ def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
     def full_llr(le21, le1):
         return ls1[:K].to(f32) + deq * (le1[:K].to(f32) + le21[:K].to(f32))
 
+    step = half_iters_fold if fold else half_iters
+
     def outputs(le21, le1, iters):
-        # L and the hard bits are formed once, after the loop.
-        L = full_llr(le21, le1)
+        # L and the hard bits are formed once, after the loop.  Under fold
+        # the carry was raw le2: the one de-interleave for L runs here.
+        L = full_llr(g_inv(le21) if fold else le21, le1)
         hard = (L < 0).to(torch.int8)
         return hard.T.contiguous(), iters, L.T.contiguous()
 
@@ -143,7 +166,7 @@ def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
         # Lean loop: no L/hard/freeze bookkeeping inside.
         le21, le1, ck1, ck2 = zT, zT, zC, zC
         for _ in range(cfg.n_iters):
-            le21, le1, ck1, ck2 = half_iters(le21, ck1, ck2)
+            le21, le1, ck1, ck2 = step(le21, ck1, ck2)
         return outputs(le21, le1, torch.full((B,), cfg.n_iters,
                                              dtype=torch.int32, device=dev))
 
@@ -169,8 +192,11 @@ def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
     it = 0
     # Exits as soon as every codeword passes: one host read per iteration.
     while it < cfg.n_iters and not bool(done.all()):
-        le21_new, le1_new, ck1, ck2 = half_iters(le21, ck1, ck2)
-        hard_new = (full_llr(le21_new, le1_new) < 0)
+        le21_new, le1_new, ck1, ck2 = step(le21, ck1, ck2)
+        # Under fold the carry holds raw le2; the convergence check needs
+        # natural order, so ONE gather per iteration remains (vs two).
+        le21_nat = g_inv(le21_new) if fold else le21_new
+        hard_new = (full_llr(le21_nat, le1_new) < 0)
 
         if cfg.early_term == "crc":
             synd = hard_new.T.to(f32) @ G                    # (B, 24)

@@ -1,8 +1,9 @@
 """Scalar numpy golden model: bit-exact turbo encoder and log-MAP decoder.
 
-Own copy of the parts of turbotpu/golden/numpy_ref.py this slice needs
-(numpy only): the encoder that makes decode inputs and the scalar BCJR that
-the torch SISOs are tested against.  Follows TS 36.212 section 5.1.3 exactly.
+Own copy of the parts of turbotpu/golden/numpy_ref.py the port needs
+(numpy only): the encoder that makes decode inputs, the LTE d-stream mux of
+the host-side transport-block pipeline, and the scalar BCJR that the torch
+SISOs are tested against.  Follows TS 36.212 section 5.1.3 exactly.
 
 Canonical codeword format used throughout the framework
 -------------------------------------------------------
@@ -51,6 +52,31 @@ def turbo_encode(bits: np.ndarray, perm: np.ndarray):
     par1, tail1 = rsc_encode(bits)
     par2, tail2 = rsc_encode(bits[perm])
     return bits.copy(), par1, par2, tail1, tail2
+
+
+def lte_mux(sys, par1, par2, tail1, tail2):
+    """Canonical -> LTE d-streams (d0, d1, d2), each length K + 4.
+
+    TS 36.212 section 5.1.3.2.2 tail multiplexing:
+      d0[K..K+3] = x_K,   z_K+1,  x'_K,   z'_K+1
+      d1[K..K+3] = z_K,   x_K+2,  z'_K,   x'_K+2
+      d2[K..K+3] = x_K+1, z_K+2,  x'_K+1, z'_K+2
+    """
+    d0 = np.concatenate([sys, [tail1[0], tail1[3], tail2[0], tail2[3]]])
+    d1 = np.concatenate([par1, [tail1[1], tail1[4], tail2[1], tail2[4]]])
+    d2 = np.concatenate([par2, [tail1[2], tail1[5], tail2[2], tail2[5]]])
+    return d0.astype(sys.dtype), d1.astype(sys.dtype), d2.astype(sys.dtype)
+
+
+def lte_demux(d0, d1, d2):
+    """LTE d-streams -> canonical (sys, par1, par2, tail1, tail2).
+
+    Works on bits or LLRs (dtype preserved).
+    """
+    K = len(d0) - 4
+    tail1 = np.array([d0[K], d1[K], d2[K], d0[K + 1], d1[K + 1], d2[K + 1]])
+    tail2 = np.array([d0[K + 2], d1[K + 2], d2[K + 2], d0[K + 3], d1[K + 3], d2[K + 3]])
+    return d0[:K], d1[:K], d2[:K], tail1, tail2
 
 
 # ----------------------------------------------------------------------

@@ -79,6 +79,22 @@ def card_info() -> str:
         check=True, capture_output=True, text=True).stdout.strip()
 
 
+def event_ms(fn, n: int, n_warmup: int = 1) -> float:
+    """ms per call of `fn` over `n` calls between two CUDA events, after
+    `n_warmup` untimed calls."""
+    for _ in range(n_warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n
+
+
 def bench_decode(cfg: DecoderConfig, B: int, n_timed: int = 16,
                  n_warmup: int = 1, seed: int = 0, ebn0_db: float = 1.0,
                  device="cuda", inputs=None) -> dict:
@@ -97,17 +113,12 @@ def bench_decode(cfg: DecoderConfig, B: int, n_timed: int = 16,
         inputs = make_decode_inputs(cfg.K, B, seed, ebn0_db,
                                     with_crc=cfg.early_term == "crc")
     inputs = tuple(x.to(dev) for x in inputs)
-    for _ in range(max(n_warmup, 1)):
-        _, iters, _ = turbo_decode(*inputs, cfg, device=dev)
-    torch.cuda.synchronize(dev)
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n_timed):
-        _, iters, _ = turbo_decode(*inputs, cfg, device=dev)
-    stop.record()
-    torch.cuda.synchronize(dev)
-    wall = start.elapsed_time(stop) / 1e3 / n_timed
+    last = {}
+
+    def decode():
+        last["iters"] = turbo_decode(*inputs, cfg, device=dev)[1]
+    wall = event_ms(decode, n_timed, max(n_warmup, 1)) / 1e3
+    iters = last["iters"]
     info_bits = B * cfg.K
     return {
         "K": cfg.K, "B": B, "iters": cfg.n_iters, "mode": cfg.mode,

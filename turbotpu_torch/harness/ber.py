@@ -11,6 +11,11 @@ decoder LLR streams and transmitted bits from a `torch.Generator`, and
 PyTorch's, so a sweep lands within sampling error of the JAX package's, not
 on its counts; fed the same streams, `step.count` gives the same counts.
 
+`simulate_point(compact_stage1=N)` is the convergence-compaction sweep
+(harness/compact.py): the same frames, stage-1 decoded at a cap of N
+iterations, the CRC failures re-batched on the host and finished at the full
+cap; its counts equal the plain sweep's.
+
 Supports checkpoint/resume: completed (config, Eb/N0) points are written to
 a JSONL results file and skipped on restart.
 """
@@ -339,20 +344,23 @@ def _point_record(cfg: SimConfig, ebn0_db: float, frames: int, bit_errs: int,
     }
 
 
-def _refuse_compaction(compact_stage1: int) -> None:
-    if compact_stage1:
-        raise NotImplementedError(
-            "compact_stage1 > 0: the convergence-compaction sweep "
-            "(harness/compact.py) is not ported")
-
-
 def simulate_point(cfg: SimConfig, ebn0_db: float, step=None,
                    compact_stage1: int = 0, compact_flush: int = 0,
                    device="cuda") -> dict:
     """Run one Eb/N0 grid point to the stopping rule; returns a record.
     `step` (from make_step) is reused across points when given, and then
-    names the device."""
-    _refuse_compaction(compact_stage1)
+    names the device.
+
+    compact_stage1 > 0 switches to two-stage convergence compaction
+    (host-side re-batching of CRC failures between super-batches) with
+    the given stage-1 iteration cap -- same frames, same counts (the
+    compaction contract is bit-identical hard decisions), plus device-work
+    fields.  compact_flush > 0 additionally accumulates failures ACROSS
+    check groups up to that many retained super-batches before flushing
+    (denser stage-2 fill; see _simulate_point_compacted)."""
+    if compact_stage1:
+        return _simulate_point_compacted(cfg, ebn0_db, step, compact_stage1,
+                                         compact_flush, device)
     if step is None:
         step = make_step(cfg, device)
     esn0 = float(_ebn0_to_esn0_db(cfg, ebn0_db))
@@ -372,8 +380,120 @@ def simulate_point(cfg: SimConfig, ebn0_db: float, step=None,
     # Realized device work: the batched loop runs until its SLOWEST frame
     # converges, so each batch costs max(iters) batch-iterations.
     rec["iter_batches"] = iter_batches
-    rec["device"] = (torch.cuda.get_device_name(step.device)
-                     if step.device.type == "cuda" else "cpu")
+    rec["device"] = _device_name(step.device)
+    return rec
+
+
+def _device_name(dev: torch.device) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def _simulate_point_compacted(cfg: SimConfig, ebn0_db: float, step,
+                              stage1_iters: int, flush_batches: int = 0,
+                              device="cuda") -> dict:
+    """Compaction sweep mode: generate the SAME super-batches as the plain
+    sweep (the same generator, drawn from in the same order), stage-1 decode
+    them at a small cap, re-batch the CRC failures into dense batches
+    host-side, and finish those at the full cap.  Counts are bit-identical
+    to the non-compact sweep on the same seeds (the decode_compacted
+    equivalence contract).
+
+    flush_batches = 0 (default): failures re-batch within each check
+    group, so the stopping rule sees complete counts at every check --
+    exact stopping parity with the non-compact sweep.
+    flush_batches = R > 0: failures ACCUMULATE across check groups and flush
+    only when a dense full-size batch is ready (deferred >= B) or R
+    super-batches are retained on device (the memory bound) -- much denser
+    stage-2 fill, so more device work is saved at low deferral rates.
+    Between flushes the stopping rule sees stage-1-converged errors only,
+    so a stopping-rule run may take extra frames (never fewer); with a
+    fixed frame budget (min_frame_errors pinned high) the counts are
+    exactly the non-compact sweep's."""
+    from .compact import _stage_fns
+    if cfg.K_mix:
+        raise ValueError("compaction re-batches through plain turbo_decode; "
+                         "mixed-K batches (per-codeword embedded tables) are "
+                         "not supported -- run without --compact")
+    if cfg.decoder.early_term != "crc":
+        raise ValueError("convergence compaction needs early_term='crc'")
+    if step is None:
+        step = make_step(cfg, device)
+    dev = step.device
+    esn0 = float(_ebn0_to_esn0_db(cfg, ebn0_db))
+    gen = point_generator(cfg, ebn0_db, dev)
+    B = cfg.B
+    bit_errs = frame_errs = frames = iters_sum = 0
+    units = n2_total = deferred_total = 0
+
+    cfg1 = dataclasses.replace(cfg.decoder, n_iters=stage1_iters)
+    stage1, stage2 = _stage_fns(cfg1, cfg.decoder, dev)
+    R = max(flush_batches, 0)
+    pending: list[tuple] = []      # (inputs5, bits, deferred row indices)
+
+    def flush():
+        """Gather every pending deferred frame into dense full-cap
+        batches."""
+        nonlocal bit_errs, frame_errs, iters_sum, units, n2_total
+        live = [p for p in pending if len(p[2])]
+        pending.clear()
+        if not live:
+            return
+        flat_inputs = tuple(
+            torch.cat([p[0][k] for p in live]) for k in range(5))
+        flat_bits = torch.cat([p[1] for p in live])
+        rows = np.concatenate([np.asarray(p[2], np.int64) + i * B
+                               for i, p in enumerate(live)])
+        n2 = -(-len(rows) // B)
+        n_pad = n2 * B - len(rows)
+        idx_all = torch.from_numpy(
+            np.concatenate([rows, np.zeros(n_pad, np.int64)])).to(dev)
+        val_all = torch.from_numpy(np.concatenate(
+            [np.ones(len(rows), bool), np.zeros(n_pad, bool)])).to(dev)
+        for b in range(n2):
+            p2, _ = stage2(flat_inputs, idx_all[b * B:(b + 1) * B],
+                           val_all[b * B:(b + 1) * B], flat_bits)
+            be, fe, it = p2.tolist()           # ONE read per stage-2 batch
+            bit_errs += be
+            frame_errs += fe
+            iters_sum += it
+        units += n2 * cfg.decoder.n_iters
+        n2_total += n2
+
+    t0 = time.perf_counter()
+    while frame_errs < cfg.min_frame_errors and frames < cfg.max_frames:
+        for _ in range(cfg.steps_per_check):
+            streams, bits = step.gen(gen, esn0)
+            packed, _ = stage1(streams, bits)
+            p = packed.cpu().numpy()           # ONE read per super-batch
+            bit_errs += int(p[0])
+            frame_errs += int(p[1])
+            iters_sum += int(p[2])
+            rows = np.nonzero(p[3:])[0]
+            deferred_total += len(rows)
+            if len(rows):
+                pending.append((streams, bits, rows))
+            units += stage1_iters
+            if (sum(len(p[2]) for p in pending) >= B
+                    or (R and len(pending) >= R)):
+                flush()
+        if not R:
+            flush()                # per-check exactness (default)
+        frames += cfg.B * cfg.steps_per_check
+    flush()
+    wall = time.perf_counter() - t0
+    rec = _point_record(cfg, ebn0_db, frames, bit_errs, frame_errs,
+                        iters_sum, wall)
+    rec.update({
+        "compact_stage1": stage1_iters,
+        **({"compact_flush_batches": R} if R else {}),
+        "iter_batches": units,
+        "n_stage2_batches": n2_total,
+        "deferred_frac": round(deferred_total / frames, 4) if frames else 0.0,
+        # avg_iters here sums stage-1 converged iters + stage-2 realized
+        # iters -- per-frame device iterations, not the single-stage
+        # loop's (which the non-compact record reports).
+        "device": _device_name(dev),
+    })
     return rec
 
 
@@ -412,7 +532,6 @@ def simulate_ber(cfg: SimConfig, results_path: str | pathlib.Path | None = None,
             if verbose:
                 print(f"[{cfg.name}] Eb/N0={ebn0:5.2f} dB  (resumed)")
             continue
-        _refuse_compaction(compact_stage1)
         if step is None:
             step = make_step(cfg, device)
         rec = simulate_point(cfg, float(ebn0), step,

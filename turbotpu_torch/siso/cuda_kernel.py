@@ -10,10 +10,16 @@ non-boundary contracts:
 * `siso_exact` -- nii=False: two-phase checkpoint/recompute, no
   approximation;
 
+* `siso_nii_fold` -- the NII contract with the extrinsic interleave folded
+  into the kernel's a-priori read (the reference's `fold_gather=True` call,
+  `pallas_call` at `:570`): `siso_cells(..., gather_idx=idx)` reads la row t
+  from row `idx[t]` of the tensor it is given, which is the other SISO's raw
+  output, so no gathered copy is made between the half-iterations;
+
 each in the three max* modes of `_mstar`/`_mstar_tree` there.  max-log keeps
-the two names above; the linlog and log-MAP instantiations count their
-launches as `siso_nii_linlog`, `siso_exact_linlog`, `siso_nii_logmap` and
-`siso_exact_logmap`.
+the names above; the linlog and log-MAP instantiations count their
+launches as `siso_nii_linlog`, `siso_exact_linlog`, `siso_nii_fold_linlog`,
+`siso_nii_logmap`, `siso_exact_logmap` and `siso_nii_fold_logmap`.
 
 Layout.  All streams are time-major `(T, B)` tensors: the same element order
 at each step as the JAX package's `(cells, T, 8, 128)`, without its batch
@@ -26,7 +32,9 @@ ignored (masked in the kernel) but must be finite.  Window checkpoints are
 On a CUDA tensor a wrapper launches its kernel or raises; it takes the plain
 version only for a tensor on the CPU.  `LAUNCHES` counts kernel launches.
 
-The plain versions (`siso_nii_plain`, `siso_exact_plain`) are a Python loop
+The plain versions (`siso_nii_plain`, `siso_exact_plain`; the folded read is
+`siso_nii_plain(..., gather_idx=idx)`, an `index_select` in front of the
+same loop) are a Python loop
 over steps that repeats the kernel's arithmetic in the same order (fp32
 metrics, renormalisation every UNROLL steps from the window start, the same
 quantisation), vectorised over the 8 states: where the kernel adds no branch
@@ -54,14 +62,19 @@ THREADS = 32         # codewords per thread block (one warp)
 _MODE_CODES = {MAXLOG: 0, LINLOG: 1, LOGMAP: 2}
 
 
-def kernel_name(nii: bool, mode: str) -> str:
+def kernel_name(nii: bool, mode: str, fold: bool = False) -> str:
     """The name a contract/mode instantiation counts its launches under."""
-    base = "siso_nii" if nii else "siso_exact"
+    if fold and not nii:
+        raise ValueError("the folded read exists for the NII contract only")
+    base = "siso_nii_fold" if fold else "siso_nii" if nii else "siso_exact"
     return base if mode == MAXLOG else f"{base}_{mode}"
 
 
-LAUNCHES = {kernel_name(nii, mode): 0
-            for mode in (MAXLOG, LINLOG, LOGMAP) for nii in (True, False)}
+# (nii, fold) of the three contracts
+CONTRACTS = ((True, False), (False, False), (True, True))
+
+LAUNCHES = {kernel_name(nii, mode, fold): 0
+            for mode in (MAXLOG, LINLOG, LOGMAP) for nii, fold in CONTRACTS}
 
 _CHAN_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 _EXT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -148,9 +161,12 @@ def _extrinsic(alpha, beta, p_row, tb, mode):
     return side[0] - side[1]
 
 
-def _siso_plain(ls, lp, la, ain, K_real, W, scale, ext_qscale, mode=MAXLOG):
+def _siso_plain(ls, lp, la, ain, K_real, W, scale, ext_qscale, mode=MAXLOG,
+                gather_idx=None):
     T, B = ls.shape
     dev = ls.device
+    if gather_idx is not None:       # the folded read: la row t is la[idx[t]]
+        la = la.index_select(0, gather_idx.to(torch.long))
     n_win, n_sub = T // W, W // UNROLL
     tb = _Tables(dev)
     f32 = torch.float32
@@ -201,10 +217,14 @@ def _siso_plain(ls, lp, la, ain, K_real, W, scale, ext_qscale, mode=MAXLOG):
 
 
 def siso_nii_plain(ls, lp, la, ain, K_real: int, W: int, scale: float = 1.0,
-                   ext_qscale: float = 0.0, mode: str = MAXLOG):
-    """Plain version of the `siso_nii` kernels.  Returns (le, aout); aout[0]
-    is zero (the kernel leaves it unwritten)."""
-    return _siso_plain(ls, lp, la, ain, K_real, W, scale, ext_qscale, mode)
+                   ext_qscale: float = 0.0, mode: str = MAXLOG,
+                   gather_idx: torch.Tensor | None = None):
+    """Plain version of the `siso_nii` kernels and, with `gather_idx` (a
+    (KTp,) integer table: la row t is row gather_idx[t] of `la`), of the
+    `siso_nii_fold` kernels.  Returns (le, aout); aout[0] is zero (the kernel
+    leaves it unwritten)."""
+    return _siso_plain(ls, lp, la, ain, K_real, W, scale, ext_qscale, mode,
+                       gather_idx)
 
 
 def siso_exact_plain(ls, lp, la, K_real: int, W: int, scale: float = 1.0,
@@ -217,37 +237,42 @@ def siso_exact_plain(ls, lp, la, K_real: int, W: int, scale: float = 1.0,
 # kernel wrappers
 # ----------------------------------------------------------------------
 
-def _target(mode_code: int, chan_code: int, ext_code: int) -> _build.Target:
+def _target(mode_code: int, chan_code: int, ext_code: int,
+            fold: bool = False) -> _build.Target:
     """csrc/siso.cu compiled for one max* mode and one pair of stream types:
     each variant is a small library of its own (the NII and the exact
-    kernel), built when first launched, so a decode builds only what it
-    runs and the variants compile side by side."""
+    kernel, or with `fold` the NII kernel with the folded read alone), built
+    when first launched, so a decode builds only what it runs and the
+    variants compile side by side."""
     return ("siso", (f"-DSISO_MODE={mode_code}", f"-DSISO_CHAN={chan_code}",
-                     f"-DSISO_EXT={ext_code}"))
+                     f"-DSISO_EXT={ext_code}")
+            + (("-DSISO_FOLD=1",) if fold else ()))
 
 
 def build_targets() -> list[_build.Target]:
     """Every variant of the kernel source, for building them all at once
     (`_build.build(build_targets())`)."""
-    return [_target(m, c, e) for m in _MODE_CODES.values()
+    return [_target(m, c, e, fold) for fold in (False, True)
+            for m in _MODE_CODES.values()
             for c in _CHAN_TYPES.values() for e in _EXT_TYPES.values()]
 
 
-def _lib(mode: str, chan: torch.dtype, ext: torch.dtype) -> ctypes.CDLL:
+def _lib(mode: str, chan: torch.dtype, ext: torch.dtype,
+         fold: bool = False) -> ctypes.CDLL:
     lib = _build.load(*_target(_MODE_CODES[mode], _CHAN_TYPES[chan],
-                               _EXT_TYPES[ext]))
+                               _EXT_TYPES[ext], fold))
     fn = lib.turbotpu_siso_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [i, i, i, i, p, p, p, p, p, p, p, p, i, i, i, i, f, f,
-                       i, p]
+        fn.argtypes = [i, i, i, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f,
+                       f, i, p]
         fn.restype = ctypes.c_int
     return lib
 
 
-def _launch(ls, lp, la, ain, K_real, W, eff, inv_q, mode):
-    """Launch the NII (ain given) or exact (ain None) kernel of `mode` on
-    CUDA tensors."""
+def _launch(ls, lp, la, ain, K_real, W, eff, inv_q, mode, idx=None):
+    """Launch the NII (ain given; with idx its folded form) or exact (ain
+    None) kernel of `mode` on CUDA tensors."""
     T, B = ls.shape
     n_win = T // W
     dev = ls.device
@@ -255,14 +280,15 @@ def _launch(ls, lp, la, ain, K_real, W, eff, inv_q, mode):
     aw = torch.empty((W, 8, B), dtype=torch.float32, device=dev)
     # NII: the fresh window starts; exact: phase 1's checkpoints.
     ck = torch.empty((n_win, 8, B), dtype=torch.float32, device=dev)
-    nii = ain is not None
-    fn = _lib(mode, ls.dtype, la.dtype).turbotpu_siso_launch
+    nii, fold = ain is not None, idx is not None
+    fn = _lib(mode, ls.dtype, la.dtype, fold).turbotpu_siso_launch
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        LAUNCHES[kernel_name(nii, mode)] += 1
+        LAUNCHES[kernel_name(nii, mode, fold)] += 1
         rc = fn(_MODE_CODES[mode], _CHAN_TYPES[ls.dtype], _EXT_TYPES[la.dtype],
                 int(nii),
-                ls.data_ptr(), lp.data_ptr(), la.data_ptr(), le.data_ptr(),
+                ls.data_ptr(), lp.data_ptr(), la.data_ptr(),
+                idx.data_ptr() if fold else None, le.data_ptr(),
                 ain.data_ptr() if nii else None, ck.data_ptr() if nii else None,
                 aw.data_ptr(), None if nii else ck.data_ptr(),
                 B, K_real, n_win, W, eff, inv_q, THREADS, stream)
@@ -270,14 +296,15 @@ def _launch(ls, lp, la, ain, K_real, W, eff, inv_q, mode):
         raise RuntimeError(
             f"siso kernel launch failed: cudaError {rc} "
             f"(T={T}, B={B}, W={W}, chan={ls.dtype}, ext={la.dtype}, "
-            f"nii={nii}, mode={mode})")
+            f"nii={nii}, fold={fold}, mode={mode})")
     return le, (ck if nii else None)
 
 
 def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
                K_real: int, mode: str, scale: float = 1.0,
                nii_ckpt: torch.Tensor | None = None, window: int = 0,
-               ext_qscale: float = 0.0):
+               ext_qscale: float = 0.0,
+               gather_idx: torch.Tensor | None = None):
     """Kernel entry: raw LLR streams in, extrinsics out.
 
     ls/lp/la: contiguous (KTp, B) with KTp a multiple of the window; pad
@@ -291,6 +318,13 @@ def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
     previous half-iteration (cold start: zeros).  With it the call returns
     (le, new_ckpt) and runs the NII kernel of `mode`; without it, le alone
     from the exact kernel of `mode`.
+
+    gather_idx: optional (KTp,) int32 table shared by the batch, values in
+    [0, KTp) (NII contract only): the a-priori row of step t is read from
+    `la[gather_idx[t]]`.  The caller passes the OTHER SISO's raw extrinsic
+    output and makes no gathered copy; the result equals the call without
+    the option on `la.index_select(0, gather_idx)` bit for bit.  The mask
+    [t < K_real] is on the step, after the read.
     """
     if mode not in MODES:
         raise ValueError(f"unknown max* mode {mode!r}")
@@ -318,6 +352,14 @@ def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
                              f"{(KTp // W, 8, B)}, got {nii_ckpt.dtype} "
                              f"{tuple(nii_ckpt.shape)}")
         tensors.append(nii_ckpt)
+    if gather_idx is not None:
+        if nii_ckpt is None:
+            raise ValueError("gather_idx needs the NII contract (nii_ckpt)")
+        if gather_idx.shape != (KTp,) or gather_idx.dtype != torch.int32:
+            raise ValueError(f"gather_idx must be int32 of shape {(KTp,)}, "
+                             f"got {gather_idx.dtype} "
+                             f"{tuple(gather_idx.shape)}")
+        tensors.append(gather_idx)
     if any(t.device != ls.device for t in tensors):
         raise ValueError("all tensors must lie on one device")
     if not all(t.is_contiguous() for t in tensors):
@@ -325,11 +367,12 @@ def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
 
     if ls.device.type == "cpu":
         le, ck = _siso_plain(ls, lp, la, nii_ckpt, K_real, W, scale,
-                             ext_qscale, mode)
+                             ext_qscale, mode, gather_idx)
     elif ls.device.type == "cuda":
         eff = scale * (ext_qscale if ext_qscale else 1.0)
         inv_q = 1.0 / ext_qscale if ext_qscale else 1.0
-        le, ck = _launch(ls, lp, la, nii_ckpt, K_real, W, eff, inv_q, mode)
+        le, ck = _launch(ls, lp, la, nii_ckpt, K_real, W, eff, inv_q, mode,
+                         gather_idx)
     else:
         raise ValueError(f"unsupported device {ls.device}")
     return le if nii_ckpt is None else (le, ck)
