@@ -4,12 +4,12 @@
     python3 chip_smoke.py [--ptxas] [--phases kernels,decode,...]
 
 Phases: kernels, decode, bench, mixed, gather, encoder, fold, calibrate, tb,
-compact, ber.
+seq, dist, compact, ber.
 
 Needs one NVIDIA card, nvcc and no network.  It builds the port's CUDA
 kernels from turbotpu_torch/csrc (siso.cu in all its variants, row_gather.cu,
-issue_rate.cu), holds each against its plain PyTorch version on the card, and
-drives the port's entry points:
+issue_rate.cu, ring_xch.cu), holds each against its plain PyTorch version on
+the card, and drives the port's entry points:
 
 * `turbotpu_torch.turbo_decode` on the flagship configuration (LTE K=6144,
   1024 codewords, max-log, 6 iterations, NII window 256, bf16 channel
@@ -28,6 +28,17 @@ drives the port's entry points:
   on C6 (A=12000, two code blocks, rate 1/2) at two grid points held to the
   recorded counts, and `transport.decode_transport_block` on one block made
   on the host (phase `tb`);
+* `turbotpu_torch.harness.c5.run_c5` (`cli c5`), the sequence-sharded decode
+  of C5 (K=6144, 4096 codewords, max-log, 6 iterations, bf16 streams, CRC
+  early termination at 0.8 dB) on a local mesh of the one card, seq=2 exact
+  and NII window 256 and seq=4, through K4 (`siso_bnd_*`, checked against its
+  plain version at C5's chunk shape, and with e0 edges against the exact and
+  NII kernels); `dist.seq_parallel.decode_seq_sharded` at seq=1 against the
+  monolithic decode bit for bit, with the K6 exchange (`boundary_xch="dma"`)
+  against the ring shift bit for bit, at seq=2 against the monolithic decode
+  of the same frames, and small against the CPU (phase `seq`); K6 (`ring_xch`)
+  against its plain version over 100 exchanges, and
+  `dist.data_parallel` through NCCL with a world of one (phase `dist`);
 * `turbotpu_torch.harness.compact.bench_compaction` and the compacted sweeps
   (`simulate_point(compact_stage1=, compact_flush=)`), whose counts must
   equal the plain ones on the same frames (phase `compact`);
@@ -63,7 +74,7 @@ MODES = ("maxlog", "linlog", "logmap")
 _PALLAS = "turbotpu/siso/pallas_kernel.py"
 KERNEL_SOURCE = "turbotpu_torch/csrc/siso.cu"
 ALL_PHASES = ("kernels", "decode", "bench", "mixed", "gather", "encoder",
-              "fold", "calibrate", "tb", "compact", "ber")
+              "fold", "calibrate", "tb", "seq", "dist", "compact", "ber")
 
 # kernel vs plain version on the card.  max-log and linlog: the same fp32
 # operations in the same order, so codes, le and checkpoints must be equal.
@@ -102,11 +113,20 @@ def replaces(nii: bool, mode: str, fold: bool = False) -> str:
             f"mode={mode}) inside {base}")
 
 
+def bnd_replaces(nii: bool, mode: str) -> str:
+    base = (f"{_PALLAS}:167 (_make_kernel boundary=True, nii={nii}, "
+            f"with_offset; specs :532-539, pallas_call at :576)")
+    if mode == "maxlog":
+        return base
+    return f"{_PALLAS}:57 (_mstar/_mstar_tree, mode={mode}) inside {base}"
+
+
 def siso_bound_ms(T, B, n_win, chan_bytes, ext_bytes, nii, int8_out,
-                  mode="maxlog", fold=False):
+                  mode="maxlog", fold=False, bnd=False):
     """Least time the card could take for one SISO call: the larger of bytes
     moved (each input read once, each output written once) over the memory
-    rate and fp32 instructions over their issue rate.
+    rate and fp32 instructions over their issue rate.  The boundary forms
+    (bnd) also read two (8, B) fp32 edges and write two.
 
     Instructions per max*, from csrc/siso.cu: max-log 1 (max); linlog 6
     (max, sub, mul, sub, max with 0, add; the absolute value is an operand
@@ -117,6 +137,8 @@ def siso_bound_ms(T, B, n_win, chan_bytes, ext_bytes, nii, int8_out,
                   + (2 * n_win * 32 if nii else 0))
     if fold:
         nbytes += 4 * T           # the gather table, shared by the batch
+    if bnd:
+        nbytes += B * 4 * 32      # edges: two in, two out
     mstar = {"maxlog": 1, "linlog": 6, "logmap": 33}[mode]
     rows = 4                      # la*sm, +ls, negate, negate lp
     step = 1 + 12 + 8 * mstar     # A+P; 12 edge adds; 8 max*
@@ -135,13 +157,14 @@ def siso_bound_ms(T, B, n_win, chan_bytes, ext_bytes, nii, int8_out,
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def make_streams(inputs, K, W, dt, dev, perm=None):
+def make_streams(inputs, K, W, dt, dev, perm=None, KTp=None):
     """The four (KTp, B) channel streams of a decode, as turbo_cells builds
-    them: time pad with ls = BIG, lp = 0.  `perm` defaults to the LTE table."""
+    them: time pad with ls = BIG, lp = 0.  `perm` defaults to the LTE table;
+    KTp to K + 3 rounded up to the window."""
     from turbotpu_torch.siso.cuda_kernel import BIG, _round_up
     from turbotpu_torch.spec.qpp import qpp_perm
     ls, lp1, lp2, t1, t2 = (x.to(dev) for x in inputs)
-    KTp = _round_up(K + 3, W)
+    KTp = KTp or _round_up(K + 3, W)
     perm = torch.from_numpy(
         (qpp_perm(K) if perm is None else perm).astype(np.int64)).to(dev)
 
@@ -213,8 +236,9 @@ def check_kernels(dev, results):
         "logmap": [((168, 32, 64), combos), ((5114, 128, 128), (f32,)),
                    ((5114, 256, 128), (f32,))],
     }
-    worst = {name: 0.0 for name in ck.LAUNCHES}
-    ties = {name: 0 for name in ck.LAUNCHES}
+    worst = {ck.kernel_name(nii, mode, fold): 0.0
+             for mode in MODES for nii, fold in ck.CONTRACTS}
+    ties = {name: 0 for name in worst}
     cases, other_shapes = [], []
     lte_inputs, umts_inputs = {}, {}
     for mode in MODES:
@@ -413,9 +437,11 @@ def check_kernels(dev, results):
 
 def launch_counters():
     """The launch counts of every kernel wrapper of the port."""
+    from turbotpu_torch.dist import dma
     from turbotpu_torch.experiments import cost_breakdown, gather_inkernel
     from turbotpu_torch.siso import cuda_kernel as ck
-    return (ck.LAUNCHES, gather_inkernel.LAUNCHES, cost_breakdown.LAUNCHES)
+    return (ck.LAUNCHES, gather_inkernel.LAUNCHES, cost_breakdown.LAUNCHES,
+            dma.LAUNCHES)
 
 
 def count_launches(results, fn):
@@ -853,6 +879,408 @@ def run_tb(dev, card, results):
          tbs=sum(r["tbs"] for r in recs), host_pipeline=host)
 
 
+# C5 on the card: the reference's run_c5 defaults (K=6144, 4096 codewords,
+# max-log, 6 iterations, bf16 streams, CRC early termination at 0.8 dB).
+C5_K, C5_B, C5_EBN0 = 6144, 4096, 0.8
+
+
+def check_k4(dev, results, inputs):
+    """K4 at C5's chunk shape (seq=2, bf16 channel and extrinsic streams):
+    every instantiation against its plain version on the last chunk (row
+    offset C: the mask cuts it at global row K), with an alpha edge made by
+    a call on the first chunk, a beta edge and an a-priori stream made by a
+    cold call on the last, timed.  Then the two e0 identities on the whole
+    trellis at the flagship shape."""
+    from turbotpu_torch.dist.seq_parallel import chunk_sizing
+    from turbotpu_torch.harness.bench import flagship_config, make_decode_inputs
+    from turbotpu_torch.siso import cuda_kernel as ck
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    K, B = C5_K, C5_B
+    cases = []
+    for nii, window in ((False, 0), (True, 256)):
+        C, W, n_win, KTp = chunk_sizing(K + 3, 2, window)
+        ls1, lp1, _, _ = make_streams(inputs, K, W, bf16, dev, KTp=KTp)
+        first, last = (ls1[:C], lp1[:C]), (ls1[C:2 * C], lp1[C:2 * C])
+        uni = torch.zeros((8, B), dtype=f32, device=dev)
+        e0 = ck._e0(B, dev)
+        zE = torch.zeros((C, B), dtype=bf16, device=dev)
+        for mode in MODES:
+            scale = 0.75 if mode == "maxlog" else 1.0
+            tol = TOLERANCE[mode]
+            name = ck.kernel_name(nii, mode, bnd=True)
+            _, a_edge, _ = ck.siso_cells(*first, zE, K, mode, scale,
+                                         boundaries=(e0, uni), window=W)
+            la, _, b_edge = ck.siso_cells(*last, zE, K, mode, scale,
+                                          boundaries=(uni, uni), window=W,
+                                          row_offset=C)
+            if nii:
+                tbl = ck.siso_cells(*last, zE, K, mode, scale, window=W,
+                                    nii_boundaries=(torch.zeros(
+                                        (n_win, 8, B), device=dev), uni, uni),
+                                    row_offset=C)[1]
+                kw = dict(nii_boundaries=(tbl, a_edge, b_edge))
+            else:
+                kw = dict(boundaries=(a_edge, b_edge))
+            got = ck.siso_cells(*last, la, K, mode, scale, window=W,
+                                row_offset=C, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if nii:
+                want = ck.siso_bnd_nii_plain(*last, la, tbl, a_edge, b_edge,
+                                             K, W, scale, 0.0, mode,
+                                             row_offset=C)
+            else:
+                want = ck.siso_bnd_exact_plain(*last, la, a_edge, b_edge, K,
+                                               W, scale, 0.0, mode,
+                                               row_offset=C)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            errs = {}
+            e_le, le_tol = le_error(got[0], want[0], tol)
+            errs["le"] = e_le
+            outs = ("aout", "eout", "bout") if nii else ("aout", "bout")
+            for key, a, b in zip(outs, got[1:], want[1:]):
+                if key == "aout" and nii:
+                    a, b = a[1:], b[1:]     # slot 0 is never written
+                errs[key] = float((a - b).abs().max()) if a.numel() else 0.0
+            if not (all(np.isfinite(v) for v in errs.values())
+                    and e_le <= le_tol
+                    and all(v <= tol for k, v in errs.items() if k != "le")):
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version at C={C} W={W} B={B}: {errs}")
+            bound, by = siso_bound_ms(C, B, n_win, 2, 2, nii, False, mode,
+                                      bnd=True)
+            results[name].update(
+                max_abs_err=max(errs.values()),
+                ms=time_launches(lambda: ck.siso_cells(
+                    *last, la, K, mode, scale, window=W, row_offset=C, **kw),
+                    10),
+                plain_ms=plain_s * 1e3, bound_ms=bound, bound_by=by,
+                shape={"K": K, "C": C, "W": W, "B": B, "chan": "bfloat16",
+                       "ext": "bfloat16", "row_offset": C})
+            cases.append({"name": name, "C": C, "W": W, **errs})
+
+    # e0 edges, offset 0, the whole trellis: the exact and NII kernels
+    K, W = flagship_config().K, flagship_config().window
+    flag = make_decode_inputs(K, 1024, seed=1, ebn0_db=1.0)
+    B = flag[0].shape[0]
+    identities = []
+    for ext in (torch.int8, bf16):
+        qs = 0.25 if ext == torch.int8 else 0.0
+        ls1, lp1, _, _ = make_streams(flag, K, W, bf16, dev)
+        T = ls1.shape[0]
+        e0 = ck._e0(B, dev)
+        for mode in MODES:
+            scale = 0.75 if mode == "maxlog" else 1.0
+            z = torch.zeros((T, B), dtype=ext, device=dev)
+            tbl0 = torch.zeros((T // W, 8, B), device=dev)
+            la, tbl = ck.siso_cells(ls1, lp1, z, K, mode, scale, window=W,
+                                    nii_ckpt=tbl0, ext_qscale=qs)
+            x = ck.siso_cells(ls1, lp1, la, K, mode, scale, window=W,
+                              ext_qscale=qs)
+            xb = ck.siso_cells(ls1, lp1, la, K, mode, scale, window=W,
+                               ext_qscale=qs, boundaries=(e0, e0))[0]
+            n, n_tbl = ck.siso_cells(ls1, lp1, la, K, mode, scale, window=W,
+                                     ext_qscale=qs, nii_ckpt=tbl)
+            nb, nb_tbl, _, _ = ck.siso_cells(
+                ls1, lp1, la, K, mode, scale, window=W, ext_qscale=qs,
+                nii_boundaries=(tbl, e0, e0))
+            if not (torch.equal(x, xb) and torch.equal(n, nb)
+                    and torch.equal(n_tbl[1:], nb_tbl[1:])):
+                raise AssertionError(f"the e0 identities fail for {mode} "
+                                     f"with {ext} extrinsics")
+            identities.append(f"{mode}+{str(ext)[6:]}")
+    return {"cases": cases, "e0_identities_bit_equal": identities}
+
+
+def check_seq(dev, card, results):
+    """Phase `seq`: K4 against its plain version; the sharded decode at
+    seq=1 against the monolithic one bit for bit; run_c5 at full width
+    (seq=2 exact and NII window 256, seq=4); the K6 exchange against the
+    ring shift; seq=2 against the monolithic decode of the same frames; a
+    small decode against the CPU; the corrected modes through the same
+    entry point; where a C5 iteration's time goes."""
+    from turbotpu_torch import turbo_decode
+    from turbotpu_torch.dist.dma import boundary_exchange_dma
+    from turbotpu_torch.dist.mesh import make_mesh
+    from turbotpu_torch.dist.seq_parallel import (_chunked_crc_matrix,
+                                                  _extended_tables,
+                                                  chunk_sizing,
+                                                  decode_seq_sharded,
+                                                  make_exchange)
+    from turbotpu_torch.harness import c5
+    from turbotpu_torch.harness.bench import flagship_config, make_decode_inputs
+    from turbotpu_torch.siso import cuda_kernel as ck
+
+    K, B = C5_K, C5_B
+    bits_np, noisy = c5.make_batch(K, B, C5_EBN0, seed=0)
+    inputs = tuple(torch.from_numpy(x).to(dev) for x in noisy)
+    bits = torch.from_numpy(bits_np).to(dev)
+    rec = {"card": card, "k4": check_k4(dev, results, inputs)}
+    emit("seq_kernels", **rec["k4"])
+
+    # seq=1 is the monolithic decode, bit for bit, at the flagship shape
+    flag = tuple(x.to(dev) for x in make_decode_inputs(
+        flagship_config().K, 1024, seed=2, ebn0_db=1.0, with_crc=True))
+    one = make_mesh(1, 1, device=dev)
+    rec["seq1_vs_monolithic"] = {}
+    for early in ("none", "crc"):
+        cfg = flagship_config(early_term=early)
+        want = turbo_decode(*flag, cfg, device=dev)
+        got, launched = count_launches(
+            results, lambda: decode_seq_sharded(one, cfg)(*flag))
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"seq=1 {early} decode differs from the "
+                                 f"monolithic one")
+        n_it = int(got[1].max())
+        if not only(launched, siso_bnd_nii=2 * n_it):
+            raise AssertionError(f"seq=1 {early}: launches {launched}")
+        rec["seq1_vs_monolithic"][early] = {"bit_equal": True,
+                                            "iters_max": n_it}
+
+    # run_c5 at full width: the entry point a user calls
+    rec["run_c5"] = []
+    for kw in (dict(seq=2), dict(seq=2, nii=True, window=256), dict(seq=4)):
+        r, launched = count_launches(results, lambda: c5.run_c5(
+            **kw, n_timed=4, verbose=False))
+        name = ck.kernel_name(kw.get("nii", False), "maxlog", bnd=True)
+        if set(k for k, v in launched.items() if v) != {name}:
+            raise AssertionError(f"run_c5 {kw}: launches {launched}")
+        for key in ("ber", "fer", "wall_s", "mbit_per_s"):
+            if not np.isfinite(r[key]):
+                raise AssertionError(f"run_c5 {kw}: {key} = {r[key]}")
+        if r["mesh"] != {"data": 1, "seq": kw["seq"]} or r["fer"] >= 0.5:
+            raise AssertionError(f"run_c5 {kw}: {r}")
+        r["launches"] = {name: launched[name]}
+        rec["run_c5"].append(r)
+        emit("c5", **r)
+
+    # the K6 exchange against the ring shift, on the same frames; seq=2
+    # against the monolithic decode of them
+    mesh = make_mesh(1, 2, device=dev)
+    rec["dma_vs_ppermute"] = {}
+    outs = {}
+    for nii in (False, True):
+        cfg = c5.c5_config(nii=nii, window=256 if nii else 0)
+        ref = decode_seq_sharded(mesh, cfg)(*inputs)
+        got, launched = count_launches(results, lambda: decode_seq_sharded(
+            mesh, dataclasses.replace(cfg, boundary_xch="dma"))(*inputs))
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"dma and ppermute decodes differ "
+                                 f"(nii={nii})")
+        n_it = int(got[1].max())
+        if launched["ring_xch"] != n_it:
+            raise AssertionError(f"dma decode: {launched['ring_xch']} "
+                                 f"ring_xch launches for {n_it} iterations")
+        rec["dma_vs_ppermute"]["nii" if nii else "exact"] = {
+            "bit_equal": True, "ring_xch_launches": launched["ring_xch"]}
+        outs[nii] = ref
+    # times per batch of the same frames, in turns within this call: the
+    # sharded decode with the ring shift, with K6, and the monolithic decode
+    rec["ms_per_batch"] = {}
+    for nii in (False, True):
+        cfg = c5.c5_config(nii=nii, window=256 if nii else 0)
+        decs = {"seq2": decode_seq_sharded(mesh, cfg),
+                "seq2_dma": decode_seq_sharded(
+                    mesh, dataclasses.replace(cfg, boundary_xch="dma")),
+                "monolithic": lambda *a: turbo_decode(*a, cfg, device=dev)}
+        ms = {k: [] for k in decs}
+        for k in ("seq2", "seq2_dma", "monolithic", "monolithic", "seq2_dma",
+                  "seq2"):
+            ms[k].append(time_launches(lambda: decs[k](*inputs), 3))
+        rec["ms_per_batch"]["nii" if nii else "exact"] = ms
+    mono = turbo_decode(*inputs, c5.c5_config(), device=dev)
+    hard = outs[False][0]
+    agree = float((hard == mono[0]).float().mean())
+    fe = int((hard != bits).any(dim=1).sum())
+    fe_m = int((mono[0] != bits).any(dim=1).sum())
+    diff, band = fer_band(fe, B, fe_m, B)
+    rec["seq2_vs_monolithic"] = {
+        "hard_bit_agreement": agree, "frame_errs": fe,
+        "frame_errs_monolithic": fe_m, "bit_errs": int((hard != bits).sum()),
+        "bit_errs_monolithic": int((mono[0] != bits).sum()),
+        "fer_diff": diff, "fer_band": band,
+        "mean_iters": float(outs[False][1].float().mean()),
+        "mean_iters_monolithic": float(mono[1].float().mean())}
+    if not (agree > 0.99 and diff <= band):
+        raise AssertionError(f"seq=2 against the monolithic decode: "
+                             f"{rec['seq2_vs_monolithic']}")
+
+    # small seq=2 decodes on the card against the same on the CPU
+    small = make_decode_inputs(168, 64, seed=3, ebn0_db=1.5, with_crc=True)
+    rec["small_vs_cpu_L_max_abs_diff"] = {}
+    for nii in (False, True):
+        cfg = flagship_config(K=168, window=16 if nii else 0, nii=nii,
+                              early_term="crc")
+        got = decode_seq_sharded(mesh, cfg)(*small)
+        want = decode_seq_sharded(make_mesh(1, 2, device="cpu"), cfg)(*small)
+        d = float((got[2].cpu() - want[2]).abs().max())
+        if not (torch.equal(got[0].cpu(), want[0])
+                and torch.equal(got[1].cpu(), want[1]) and d <= 1e-4):
+            raise AssertionError(f"small seq=2 decode (nii={nii}) differs "
+                                 f"from the CPU: L {d}")
+        rec["small_vs_cpu_L_max_abs_diff"]["nii" if nii else "exact"] = d
+
+    # the corrected modes through the same entry point: 256 of the frames,
+    # two fixed iterations
+    rec["modes"] = {}
+    part = tuple(x[:256] for x in inputs)
+    for mode in ("linlog", "logmap"):
+        for nii in (False, True):
+            cfg = dataclasses.replace(
+                c5.c5_config(nii=nii, window=256 if nii else 0,
+                             early_term="none", n_iters=2), mode=mode,
+                ext_scale=None)
+            (h, _, L), launched = count_launches(
+                results, lambda: decode_seq_sharded(mesh, cfg)(*part))
+            name = ck.kernel_name(nii, mode, bnd=True)
+            if not only(launched, **{name: 8}) or not bool(
+                    torch.isfinite(L).all()):
+                raise AssertionError(f"{name} through the seq decode: "
+                                     f"{launched}")
+            rec["modes"][name] = {"bit_errs": int((h != bits[:256]).sum())}
+
+    # where a C5 iteration's time goes (seq=2, exact, crc): each part timed
+    # alone at the decode's shapes
+    C, W, n_win, KTp = chunk_sizing(K + 3, 2)
+    cfg = c5.c5_config()
+    perm_e, inv_e = _extended_tables(cfg, KTp)
+    xch = make_exchange(perm_e, C, mesh)
+    le = [torch.randn((C, B), device=dev).to(torch.bfloat16) for _ in range(2)]
+    ls_c = [torch.randn((C, B), device=dev).to(torch.bfloat16)
+            for _ in range(2)]
+    G = torch.from_numpy(_chunked_crc_matrix(K, cfg.crc_poly, C, 2)).to(dev)
+    edges = [torch.randn((8, B), device=dev) for _ in range(2)]
+    payload = [torch.randn((2, 8, B), device=dev) for _ in range(2)]
+
+    def syndrome():
+        hard = [(x.float() + 0.75 * (a.float() + b.float())) < 0
+                for x, a, b in zip(ls_c, le, le)]
+        synd = mesh.seq_sum([h.T.float() @ G[j] for j, h in enumerate(hard)])
+        return [(x % 2.0 == 0.0).all(dim=1) for x in synd]
+
+    k4 = results[ck.kernel_name(False, "maxlog", bnd=True)]["ms"]
+    split = {"k4_launch_ms": k4, "k4_launches": 4,
+             "exchange_ms": time_launches(lambda: xch(le), 20),
+             "exchanges": 2,
+             "edge_ring_shift_ms": time_launches(
+                 lambda: mesh.seq_ring(edges, edges), 20),
+             # the K6 path: payloads copied into the send buffers, one
+             # launch, the error flag read back
+             "edge_ring_xch_ms": time_launches(
+                 lambda: boundary_exchange_dma(payload, payload, mesh), 20),
+             "syndrome_reduce_ms": time_launches(syndrome, 20)}
+    split["sum_per_iteration_ms"] = (
+        4 * k4 + 2 * split["exchange_ms"] + split["edge_ring_shift_ms"]
+        + split["syndrome_reduce_ms"])
+    r = rec["run_c5"][0]
+    split["measured_per_iteration_ms"] = r["wall_s"] * 1e3 / r["max_iters"]
+    rec["iteration_split"] = split
+    emit("seq", **{k: v for k, v in rec.items() if k != "k4"})
+
+
+def check_dist(dev, card, results):
+    """Phase `dist`: K6 against its plain version and two torch.roll calls
+    at C5's edge shape over 100 exchanges, the flags after them; the
+    data-parallel decode and counts through NCCL with a world of one."""
+    import os
+    import tempfile
+
+    import torch.distributed as tdist
+    from turbotpu_torch.dist import dma
+    from turbotpu_torch.dist.data_parallel import (count_errors_sharded,
+                                                   decode_batch_sharded)
+    from turbotpu_torch.dist.mesh import make_mesh
+    from turbotpu_torch.harness.bench import flagship_config, make_decode_inputs
+
+    rec = {"card": card}
+    B, epochs = C5_B, 100
+    shape = (2, 8, B)               # both SISOs' edges of one shard
+    worst = 0.0
+    for data, n_seq, n_ep in ((1, 2, epochs), (2, 4, 10)):
+        mesh = make_mesh(data, n_seq, device=dev)   # fresh flags
+        n = data * n_seq
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(n)
+        for epoch in range(n_ep):
+            fwd = [torch.randn(shape, generator=gen, device=dev)
+                   for _ in range(n)]
+            bwd = [torch.randn(shape, generator=gen, device=dev)
+                   for _ in range(n)]
+            got = dma.boundary_exchange_dma(fwd, bwd, mesh)
+            want = dma.boundary_exchange_plain(fwd, bwd, n_seq)
+            # and the library's form: torch.roll within each data row
+            rolled = [list(torch.roll(torch.stack(x).view(data, n_seq, *shape),
+                                      k, 1).view(n, *shape))
+                      for x, k in ((fwd, 1), (bwd, -1))]
+            for a, b, c in zip(got[0] + got[1], want[0] + want[1],
+                               rolled[0] + rolled[1]):
+                worst = max(worst, float((a - b).abs().max()),
+                            float((a - c).abs().max()))
+        ring = dma.ring_buffers(mesh, n, shape, torch.float32)
+        flags = ring.flags.tolist()
+        if flags[:n] != [2 * n_ep] * n or flags[-1] != 0:
+            raise AssertionError(f"ring_xch flags after {n_ep} exchanges on "
+                                 f"{data}x{n_seq}: {flags}")
+        rec[f"flags_{data}x{n_seq}"] = {"exchanges": n_ep, "ready": flags[:n],
+                                        "arrived": flags[n:2 * n]}
+    if worst != 0.0:
+        raise AssertionError(f"ring_xch differs from its plain version: "
+                             f"{worst}")
+
+    # timed at C5's shape (one data row, seq=2): the launch alone, the plain
+    # rotation, and two torch.roll calls on the stacked payloads
+    mesh = make_mesh(1, 2, device=dev)
+    ring = dma.ring_buffers(mesh, 2, shape, torch.float32)
+    ms = time_launches(lambda: dma.launch(ring, 2), 100)
+    dma.check(ring)
+    stacked = torch.randn((2,) + shape, device=dev)
+    fwd, bwd = list(stacked), list(-stacked)
+    t0 = time.perf_counter()
+    for _ in range(100):
+        dma.boundary_exchange_plain(fwd, bwd, 2)
+    plain_ms = (time.perf_counter() - t0) * 10.0
+    lib_ms = time_launches(lambda: (torch.roll(stacked, 1, 0),
+                                    torch.roll(stacked, -1, 0)), 100)
+    nbytes = 2 * 2 * 2 * stacked[0].numel() * 4   # 2 shards x 2 dirs, r + w
+    results["ring_xch"].update(
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
+        shape={"data": 1, "seq": 2, "payload": list(shape),
+               "dtype": "float32"})
+
+    # data_parallel through NCCL with a world of one: a FileStore in a
+    # temporary directory, no network
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    cfg = flagship_config(early_term="crc")
+    inputs, bits = make_decode_inputs(cfg.K, 1024, seed=6, ebn0_db=0.6,
+                                      with_crc=True, return_bits=True)
+    local = make_mesh(1, 1, device=dev)
+    want = decode_batch_sharded(local, cfg)(*inputs)
+    want_counts = [int(x) for x in count_errors_sharded(local)(want[0], bits)]
+    with tempfile.TemporaryDirectory() as tmp:
+        tdist.init_process_group(
+            "nccl", store=tdist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            pmesh = make_mesh(1, 1, backend="process", device=dev)
+            got, launched = count_launches(results, lambda: decode_batch_sharded(
+                pmesh, cfg)(*inputs))
+            counts = [int(x) for x in count_errors_sharded(pmesh)(got[0], bits)]
+        finally:
+            tdist.destroy_process_group()
+    if not (all(torch.equal(a, b) for a, b in zip(got, want))
+            and counts == want_counts):
+        raise AssertionError(f"data_parallel over NCCL: counts {counts}, "
+                             f"local {want_counts}")
+    rec["data_parallel_nccl"] = {"world": 1, "bit_errs": counts[0],
+                                 "frame_errs": counts[1],
+                                 "launches": {k: v for k, v in
+                                              launched.items() if v}}
+    emit("dist", **rec)
+
+
 def run_compact(dev, card, results):
     """Phase `compact`: convergence compaction against the single-stage
     decode on the same frames (flagship configuration with CRC early
@@ -1000,10 +1428,11 @@ def main(argv) -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 1
     from turbotpu_torch import _build
+    from turbotpu_torch.dist import dma
     from turbotpu_torch.experiments import cost_breakdown, gather_inkernel
     from turbotpu_torch.harness.bench import card_info
-    from turbotpu_torch.siso.cuda_kernel import (CONTRACTS, build_targets,
-                                                 kernel_name)
+    from turbotpu_torch.siso.cuda_kernel import (BND_CONTRACTS, CONTRACTS,
+                                                 build_targets, kernel_name)
 
     phases = ALL_PHASES
     if "--phases" in argv:
@@ -1031,7 +1460,8 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     flags = ("-Xptxas", "-v") if "--ptxas" in argv else ()
     libs = _build.build(build_targets() + [gather_inkernel.TARGET,
-                                           cost_breakdown.TARGET], flags)
+                                           cost_breakdown.TARGET,
+                                           dma.TARGET], flags)
     for name, defines in libs:
         _build.load(name, defines, flags)
     emit("build", seconds=time.perf_counter() - t0, libraries=len(libs),
@@ -1044,6 +1474,10 @@ def main(argv) -> int:
         "name": kernel_name(nii, mode, fold), "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": replaces(nii, mode, fold),
         "library_ms": None} for mode in MODES for nii, fold in CONTRACTS}
+    results.update({kernel_name(nii, mode, bnd=True): {
+        "name": kernel_name(nii, mode, bnd=True), "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": bnd_replaces(nii, mode),
+        "library_ms": None} for mode in MODES for nii in BND_CONTRACTS})
     results["row_gather"] = {
         "name": "row_gather", "route": "cuda",
         "source": "turbotpu_torch/csrc/row_gather.cu",
@@ -1054,6 +1488,11 @@ def main(argv) -> int:
         "source": "turbotpu_torch/csrc/issue_rate.cu",
         "replaces": "experiments/cost_breakdown.py:201 (_calibrate_vpu, "
                     "pallas_call at :230)", "library_ms": None}
+    results["ring_xch"] = {
+        "name": "ring_xch", "route": "cuda",
+        "source": "turbotpu_torch/csrc/ring_xch.cu",
+        "replaces": "turbotpu/dist/dma.py:94 (boundary_exchange_dma, "
+                    "pallas_call at :119, body _xch_kernel :56)"}
     run = {"kernels": lambda: check_kernels(dev, results),
            "decode": lambda: check_decode(dev, results),
            "bench": lambda: run_bench(dev, card, results),
@@ -1063,6 +1502,8 @@ def main(argv) -> int:
            "fold": lambda: check_fold(dev, card, results),
            "calibrate": lambda: check_calibrate(dev, card, results),
            "tb": lambda: run_tb(dev, card, results),
+           "seq": lambda: check_seq(dev, card, results),
+           "dist": lambda: check_dist(dev, card, results),
            "compact": lambda: run_compact(dev, card, results),
            "ber": lambda: run_ber(dev, card, results)}
     for phase in ALL_PHASES:

@@ -161,7 +161,7 @@ def test_sim_config_carries_over():
 
 
 @pytest.mark.parametrize("name", ["C1", "C2", "C3", "C3_RM", "C4_PUNCTURED",
-                                  "C4_REPEATED"])
+                                  "C4_REPEATED", "C5"])
 def test_acceptance_configs_equal_reference(name):
     """The port's own copy of the acceptance configurations: the reference's
     values, with the kernel path under its own name."""
@@ -169,7 +169,7 @@ def test_acceptance_configs_equal_reference(name):
     assert getattr(tacc, name) == want
     if want.decoder.siso != "scan":
         assert want.decoder.siso == "cuda"
-    assert set(tacc.ALL) == {"c1", "c2", "c3", "c3rm", "c4", "c6"}
+    assert set(tacc.ALL) == {"c1", "c2", "c3", "c3rm", "c4", "c5", "c6"}
 
 
 @pytest.mark.parametrize("modulation,channel,E,rvs", [

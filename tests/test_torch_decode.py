@@ -109,7 +109,11 @@ def test_crc_ok_batch():
                                     "turbotpu_torch.harness.ber",
                                     "turbotpu_torch.configs.acceptance",
                                     "turbotpu_torch.harness.bench",
-                                    "turbotpu_torch.convert"])
+                                    "turbotpu_torch.convert",
+                                    "turbotpu_torch.dist.seq_parallel",
+                                    "turbotpu_torch.dist.dma",
+                                    "turbotpu_torch.dist.multihost",
+                                    "turbotpu_torch.harness.c5"])
 def test_import_leaves_jax_out(module):
     """(e) Importing the port in a fresh interpreter loads neither jax nor
     the JAX package."""

@@ -221,9 +221,11 @@ def test_wrapper_checks_the_gather_table():
         ck.kernel_name(False, "maxlog", fold=True)
     assert ck.kernel_name(True, "linlog", fold=True) == "siso_nii_fold_linlog"
     assert set(ck.LAUNCHES) == {
-        f"siso_{c}{m}" for c in ("nii", "exact", "nii_fold")
+        f"siso_{c}{m}" for c in ("nii", "exact", "nii_fold", "bnd_nii",
+                                 "bnd_exact")
         for m in ("", "_linlog", "_logmap")}
-    assert len(ck.build_targets()) == 2 * 3 * 2 * 3
+    # plain, folded and boundary libraries x 3 modes x 2 x 3 stream types
+    assert len(ck.build_targets()) == 3 * 3 * 2 * 3
 
 
 @pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])

@@ -127,7 +127,9 @@ def test_modes_differ_and_launch_names():
     assert sorted(ck.LAUNCHES) == sorted(
         ["siso_nii", "siso_exact", "siso_nii_linlog", "siso_exact_linlog",
          "siso_nii_logmap", "siso_exact_logmap", "siso_nii_fold",
-         "siso_nii_fold_linlog", "siso_nii_fold_logmap"])
+         "siso_nii_fold_linlog", "siso_nii_fold_logmap", "siso_bnd_nii",
+         "siso_bnd_exact", "siso_bnd_nii_linlog", "siso_bnd_exact_linlog",
+         "siso_bnd_nii_logmap", "siso_bnd_exact_logmap"])
     assert ck.kernel_name(True, "maxlog") == "siso_nii"
     assert ck.kernel_name(False, "linlog") == "siso_exact_linlog"
     before = dict(ck.LAUNCHES)

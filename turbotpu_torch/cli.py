@@ -1,9 +1,11 @@
 """Command-line entry point of the port: the Monte-Carlo BER/FER sweep, the
-decode throughput benchmark and the transport-block sweep.
+decode throughput benchmark, the transport-block sweep and the C5 sharded
+decode.
 
-Counterpart of the `ber`, `bench` and `tb` subcommands of turbotpu/cli.py,
-with --device in place of --platform (`bench` times with CUDA events and
-takes the card only; its --profile waits for harness/profiling.py).
+Counterpart of the `ber`, `bench`, `tb` and `c5` subcommands of
+turbotpu/cli.py, with --device in place of --platform (`bench` times with
+CUDA events and takes the card only; its --profile waits for
+harness/profiling.py), and `c5 --backend local|process` for the mesh.
 
 Examples:
   python -m turbotpu_torch.cli ber --config c4
@@ -13,6 +15,7 @@ Examples:
   python -m turbotpu_torch.cli bench --k 6144 --batch 1024 --siso cuda --nii \
       --window 256 --io-dtype bfloat16 --ext-dtype int8 --early-term crc --compact 3
   python -m turbotpu_torch.cli tb --config c6
+  python -m turbotpu_torch.cli c5 --seq 2 --nii --window 256
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ def main(argv=None):
     ber.add_argument("--device", default="cuda",
                      help="cuda (default; fails without a card) or cpu "
                           "(plain PyTorch versions of the kernels)")
-    ber.add_argument("--config", choices=["c1", "c2", "c3", "c3rm", "c4"])
+    ber.add_argument("--config",
+                     choices=["c1", "c2", "c3", "c3rm", "c4", "c5"])
     ber.add_argument("--k", type=int, default=1024)
     ber.add_argument("--batch", type=int, default=32)
     ber.add_argument("--iters", type=int, default=8)
@@ -151,6 +155,47 @@ def main(argv=None):
     tb.add_argument("--results", default="results/tb_torch.jsonl")
     tb.add_argument("--no-resume", action="store_true")
 
+    c5 = sub.add_parser("c5", help="C5 acceptance: sharded batch decode "
+                        "with windowed BCJR + boundary exchanges")
+    c5.add_argument("--device", default="cuda",
+                    help="cuda (default; fails without a card) or cpu "
+                         "(plain PyTorch versions; tiny shapes only)")
+    c5.add_argument("--backend", default="local", choices=["local", "process"],
+                    help="local: every (data, seq) shard in this process on "
+                         "one device; process: one shard per rank of "
+                         "torch.distributed (TURBOTPU_COORDINATOR, "
+                         "TURBOTPU_NUM_PROCS, TURBOTPU_PROC_ID)")
+    c5.add_argument("--k", type=int, default=6144)
+    c5.add_argument("--batch", type=int, default=4096)
+    c5.add_argument("--ebn0", type=float, default=0.8)
+    c5.add_argument("--iters", type=int, default=6)
+    c5.add_argument("--data", type=int, default=None)
+    c5.add_argument("--seq", type=int, default=2)
+    c5.add_argument("--siso", default="cuda", choices=["cuda", "scan"],
+                    help="chunk SISO: cuda (the boundary kernels) or scan")
+    c5.add_argument("--io-dtype", default="bfloat16",
+                    choices=["float32", "bfloat16"])
+    c5.add_argument("--nii", action="store_true",
+                    help="NII inside the chunk kernel too (window-start "
+                         "alphas inherited across half-iterations)")
+    c5.add_argument("--window", type=int, default=0)
+    c5.add_argument("--ext-dtype", default="",
+                    choices=["", "float32", "bfloat16", "int8"],
+                    help="extrinsic/exchange stream type (default: io-dtype)")
+    c5.add_argument("--groups", type=int, default=1,
+                    help="seq_groups: independent batch splits of whole "
+                         "1024-codeword cells (not with --xch dma; the "
+                         "record's seq_groups_effective shows what ran)")
+    c5.add_argument("--xch", default="ppermute", choices=["ppermute", "dma"],
+                    help="boundary exchange: the ring shift of the mesh, or "
+                         "one K6 kernel launch per iteration")
+    c5.add_argument("--early-term", choices=["none", "crc", "sign"],
+                    default="crc",
+                    help="none = fixed-iteration lean loop")
+    c5.add_argument("--reps", type=int, default=4,
+                    help="timed decodes after the untimed first one")
+    c5.add_argument("--seed", type=int, default=0)
+
     args = ap.parse_args(argv)
 
     from .decoder.turbo import DecoderConfig
@@ -171,6 +216,22 @@ def main(argv=None):
             rec = bench_decode(cfg, args.batch, n_timed=args.reps,
                                ebn0_db=args.ebn0)
         print(json.dumps({**rec, "card": card_info()}))
+        return 0
+
+    if args.cmd == "c5":
+        from .harness.c5 import run_c5
+        rec = run_c5(K=args.k, B=args.batch, ebn0_db=args.ebn0,
+                     n_iters=args.iters, data=args.data, seq=args.seq,
+                     siso=args.siso, io_dtype=args.io_dtype, nii=args.nii,
+                     window=args.window, boundary_xch=args.xch,
+                     early_term=args.early_term, n_timed=args.reps,
+                     ext_dtype=args.ext_dtype, seq_groups=args.groups,
+                     seed=args.seed, backend=args.backend, device=args.device,
+                     verbose=False)
+        if args.device != "cpu":
+            from .harness.bench import card_info
+            rec["card"] = card_info()
+        print(json.dumps(rec))
         return 0
 
     if args.cmd == "tb":

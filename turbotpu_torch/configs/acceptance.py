@@ -1,10 +1,11 @@
-"""The named acceptance configurations: C1-C4 plus C3-RM (mixed-K +
+"""The named acceptance configurations: C1-C5 plus C3-RM (mixed-K +
 per-group rate matching) of the BER sweep, and C6 of the transport-block
 sweep.
 
 The port's own copy of configs/acceptance.py: the same values, with
-siso="cuda" where the JAX package says "pallas".  C5 (sharded decode) waits
-for the modules it runs on.
+siso="cuda" where the JAX package says "pallas".  C5's sharded decode runs
+through `python -m turbotpu_torch.cli c5` (harness/c5.py); `ber --config c5`
+sweeps the same decoder configuration monolithically.
 """
 
 from ..decoder.turbo import DecoderConfig
@@ -96,6 +97,21 @@ C4_REPEATED = SimConfig(
     steps_per_check=8,
 )
 
+# C5: 4096 codewords, sliding-window BCJR, boundary exchanges.  The decoder
+# configuration of the sharded C5 decode (harness/c5.run_c5 with --nii
+# --window 256): the fused chunk kernel with bfloat16 LLR streams and CRC
+# early termination on a (data, seq) mesh, NII inside the chunk too.
+C5 = SimConfig(
+    name="c5_multihost",
+    K=6144, B=4096,
+    ebn0_db_grid=(0.8,),
+    decoder=DecoderConfig(K=6144, n_iters=6, mode="maxlog",
+                          siso="cuda", io_dtype="bfloat16",
+                          early_term="crc", nii=True, window=256),
+    use_crc=True,
+    min_frame_errors=30,
+)
+
 # C6: segmented transport block, fully device-side.  A = 12000 info bits
 # -> B = 12024 with CRC-24A -> C = 2 code blocks (K- = 6016, K+ = 6080,
 # F = 24 fillers), each rate-matched to its E_r share of G = 24000
@@ -116,5 +132,6 @@ ALL = {
     "c3": C3,
     "c3rm": C3_RM,
     "c4": (C4_PUNCTURED, C4_REPEATED),
+    "c5": C5,
     "c6": C6_TB,
 }

@@ -4,9 +4,10 @@ tables, layouts, and the loop's carried tensors.
 The system has no weights.  What a caller of the JAX package holds is a
 DecoderConfig, streams in the `(cells, T, 8, 128)` cell layout (1024
 codewords per cell, batch b = cell*1024 + sub*128 + lane) and window
-checkpoints `(cells, n_win, 8, 8, 128)`.  These functions turn them into the
-port's DecoderConfig, `(T, B)` streams and `(n_win, 8, B)` checkpoints and
-back, on numpy arrays and plain dicts.
+checkpoints `(cells, n_win, 8, 8, 128)`, and on the sequence-sharded path
+boundary edges `(cells, 8, 8, 128)`.  These functions turn them into the
+port's DecoderConfig, `(T, B)` streams, `(n_win, 8, B)` checkpoints and
+`(8, B)` edges and back, on numpy arrays and plain dicts.
 """
 
 from __future__ import annotations
@@ -110,3 +111,20 @@ def ckpt_port_to_cells(x: np.ndarray) -> np.ndarray:
     xp[:, :, :B] = x
     return np.ascontiguousarray(
         xp.reshape(n_win, S, n, 8, 128).transpose(2, 0, 1, 3, 4))
+
+
+def edge_cells_to_port(x: np.ndarray, B: int | None = None) -> np.ndarray:
+    """A boundary edge (cells, 8, 8, 128) -> (8, B): state s of codeword b
+    at [s, b]."""
+    n = x.shape[0]
+    out = np.asarray(x).transpose(1, 0, 2, 3).reshape(8, n * CELL)
+    return np.ascontiguousarray(out[:, :B])
+
+
+def edge_port_to_cells(x: np.ndarray) -> np.ndarray:
+    """(8, B) -> (cells, 8, 8, 128), batch zero-padded."""
+    S, B = x.shape
+    n = -(-B // CELL)
+    xp = np.zeros((S, n * CELL), x.dtype)
+    xp[:, :B] = x
+    return np.ascontiguousarray(xp.reshape(S, n, 8, 128).transpose(1, 0, 2, 3))

@@ -1,9 +1,9 @@
 // Fused BCJR SISO half-iteration for Hopper (sm_90a), in the three max*
 // modes: max-log, linlog and log-MAP.
 //
-// Replaces the TPU kernel turbotpu/siso/pallas_kernel.py::_make_kernel in its
-// two non-boundary contracts (built there by _build_call), with the max* of
-// _mstar/_mstar_tree and the per-leaf _extrinsic of the same file:
+// Replaces the TPU kernel turbotpu/siso/pallas_kernel.py::_make_kernel (built
+// there by _build_call), with the max* of _mstar/_mstar_tree and the per-leaf
+// _extrinsic of the same file, in its two non-boundary contracts:
 //   NII   (nii=True):  window-start alphas come from the previous
 //                      half-iteration (ain), fresh ones go out (aout);
 //   exact (nii=False): phase 1 runs alpha forward and keeps one checkpoint
@@ -12,6 +12,25 @@
 // window, run beta through it (continuous across windows, exact from e0 at
 // the padded trellis end) and emit the extrinsic
 //   Le = max*(u=0 edges) - max*(u=1 edges).
+// K4, the boundary contracts of the same function (boundary=True, with and
+// without nii, with_offset; consumed by the sequence-sharded decoder): the
+// trellis is one chunk of a longer one, so the recursions start from edge
+// metrics the caller passes in and the edges at the chunk's ends go out:
+//   exact + boundary: phase 1 starts from a0, and alpha at the chunk end goes
+//                     out; beta starts from bT, and beta at the chunk start
+//                     goes out;
+//   NII + boundary:   window 0 starts from the received edge_in; the last
+//                     window's end alpha goes out as eout, beside the
+//                     shifted-slot writes of the window table; beta as above.
+// The a-priori mask is on the global row off + t < K, with K the global info
+// length and off the chunk's first row.  A compile-time BND of the kernel,
+// built as a library of its own (-DSISO_BND=1), so a decode without the
+// sequence path never compiles it; with a0 = bT = edge_in = e0 and off = 0
+// the boundary forms are the exact and NII kernels bit for bit.  They add
+// four edge pointers and an offset and no work per step, so they are bound
+// as the others (below), over the chunk's C steps: at the sequence path's
+// batch (4096 codewords = 128 warps, about one per SM) by one warp's
+// dependent chain, as at 1024.
 // A third form of the NII contract folds the extrinsic interleave into the
 // kernel (the reference's fold_gather=True call, pallas_call at :570 of the
 // same file): the a-priori row of step t is read from row idx[t] of the
@@ -73,6 +92,9 @@
 
 #ifndef SISO_FOLD
 #define SISO_FOLD 0
+#endif
+#ifndef SISO_BND
+#define SISO_BND 0
 #endif
 
 namespace {
@@ -329,19 +351,45 @@ __device__ __forceinline__ void beta_block(
   renorm(beta);
 }
 
-template <typename TC, typename TE, bool NII, int MODE, bool FOLD>
+// K4's boundary operands, (8, B) fp32 each (state s of codeword b at
+// s*B + b); null outside the BND instantiations, which alone read them.
+struct Edges {
+  const float* a_in;  // exact: alpha at the chunk start (a0);
+                      // NII: window 0's start (edge_in)
+  const float* b_in;  // beta at the chunk end (bT)
+  float* a_out;       // exact: alpha at the chunk end; NII: eout
+  float* b_out;       // beta at the chunk start
+  int off;            // the chunk's first global row
+};
+
+__device__ __forceinline__ void load_edge(float (&m)[8], const float* e,
+                                          int64_t B, int64_t b) {
+#pragma unroll
+  for (int s = 0; s < 8; ++s) m[s] = e[s * B + b];
+}
+
+__device__ __forceinline__ void store_edge(float* e, const float (&m)[8],
+                                           int64_t B, int64_t b) {
+#pragma unroll
+  for (int s = 0; s < 8; ++s) e[s * B + b] = m[s];
+}
+
+template <typename TC, typename TE, bool NII, int MODE, bool FOLD, bool BND>
 __global__ void siso_kernel(
     const TC* __restrict__ ls, const TC* __restrict__ lp,
     const TE* __restrict__ la, const int* __restrict__ idx,
     TE* __restrict__ le, const float* __restrict__ ain,
     float* __restrict__ aout, float* __restrict__ aw,
     float* __restrict__ ckpt, int B_, int K, int n_win, int W, float eff,
-    float inv_q) {
+    float inv_q, Edges e) {
   static_assert(NII || !FOLD, "the folded read exists for the NII contract");
+  static_assert(!(FOLD && BND), "the folded read has no boundary form");
   const int64_t B = B_;
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const Streams<TC, TE, FOLD> st{ls, lp, la, idx, B, b, K, eff};
+  // BND: the mask off + t < K is t < K - off on the chunk's own rows.
+  const Streams<TC, TE, FOLD> st{ls, lp, la, idx, B, b, BND ? K - e.off : K,
+                                 eff};
   const int T = n_win * W;
   Rows<TC, TE> r0, r1;
 
@@ -349,7 +397,7 @@ __global__ void siso_kernel(
     // Phase 1: forward alpha over the whole trellis, one checkpoint per
     // window start.
     float alpha[8];
-    init_e0(alpha);
+    if (BND) load_edge(alpha, e.a_in, B, b); else init_e0(alpha);
     st.fetch(0, r0);
     for (int t0 = 0; t0 < T; t0 += 2 * UNROLL) {
       if (t0 % W == 0) {
@@ -368,18 +416,19 @@ __global__ void siso_kernel(
         alpha_block<MODE>(st, t1, t1 + UNROLL < T, r1, r0, alpha, nullptr, 0);
       }
     }
+    if (BND) store_edge(e.a_out, alpha, B, b);  // alpha at the chunk end
   }
 
   // Phase 2: windows backward; recompute alpha, run beta, emit Le.
   float beta[8];
-  init_e0(beta);
+  if (BND) load_edge(beta, e.b_in, B, b); else init_e0(beta);
   for (int w = n_win - 1; w >= 0; --w) {
     const int base = w * W;
     st.fetch(base, r0);
     float alpha[8];
     if (NII) {
       if (w == 0) {
-        init_e0(alpha);
+        if (BND) load_edge(alpha, e.a_in, B, b); else init_e0(alpha);
       } else {
 #pragma unroll
         for (int s = 0; s < 8; ++s) alpha[s] = ain[((int64_t)w * 8 + s) * B + b];
@@ -401,6 +450,8 @@ __global__ void siso_kernel(
       for (int s = 0; s < 8; ++s)
         aout[((int64_t)(w + 1) * 8 + s) * B + b] = alpha[s];
     }
+    // the last window's end is the outgoing chunk edge
+    if (NII && BND && w == n_win - 1) store_edge(e.a_out, alpha, B, b);
 
     float a0[UNROLL][8], a1[UNROLL][8];
     st.fetch(base + W - UNROLL, r0);
@@ -413,29 +464,32 @@ __global__ void siso_kernel(
                          a1, r0, a0, beta, aw, le, inv_q);
     }
   }
+  if (BND) store_edge(e.b_out, beta, B, b);  // beta at the chunk start
 }
 
 template <typename TC, typename TE, int MODE>
 cudaError_t launch(bool nii, const void* ls, const void* lp, const void* la,
                    const int* idx, void* le, const float* ain, float* aout,
                    float* aw, float* ckpt, int B, int K, int n_win, int W,
-                   float eff, float inv_q, int threads, cudaStream_t stream) {
+                   float eff, float inv_q, int threads, cudaStream_t stream,
+                   const Edges& e) {
   const dim3 grid((B + threads - 1) / threads), block(threads);
 #if SISO_FOLD
   if (!nii || idx == nullptr) return cudaErrorInvalidValue;
-  siso_kernel<TC, TE, true, MODE, true><<<grid, block, 0, stream>>>(
+  siso_kernel<TC, TE, true, MODE, true, false><<<grid, block, 0, stream>>>(
       (const TC*)ls, (const TC*)lp, (const TE*)la, idx, (TE*)le, ain, aout,
-      aw, ckpt, B, K, n_win, W, eff, inv_q);
+      aw, ckpt, B, K, n_win, W, eff, inv_q, e);
 #else
+  constexpr bool BND = SISO_BND != 0;
   if (idx != nullptr) return cudaErrorInvalidValue;
   if (nii) {
-    siso_kernel<TC, TE, true, MODE, false><<<grid, block, 0, stream>>>(
+    siso_kernel<TC, TE, true, MODE, false, BND><<<grid, block, 0, stream>>>(
         (const TC*)ls, (const TC*)lp, (const TE*)la, idx, (TE*)le, ain, aout,
-        aw, ckpt, B, K, n_win, W, eff, inv_q);
+        aw, ckpt, B, K, n_win, W, eff, inv_q, e);
   } else {
-    siso_kernel<TC, TE, false, MODE, false><<<grid, block, 0, stream>>>(
+    siso_kernel<TC, TE, false, MODE, false, BND><<<grid, block, 0, stream>>>(
         (const TC*)ls, (const TC*)lp, (const TE*)la, idx, (TE*)le, ain, aout,
-        aw, ckpt, B, K, n_win, W, eff, inv_q);
+        aw, ckpt, B, K, n_win, W, eff, inv_q, e);
   }
 #endif
   return cudaGetLastError();
@@ -449,11 +503,16 @@ cudaError_t launch(bool nii, const void* ls, const void* lp, const void* la,
 //   -DSISO_EXT=   0 float32, 1 bfloat16, 2 int8  (la in, le out)
 //   -DSISO_FOLD=  0 (default) the NII and the exact kernel,
 //                 1 the NII kernel with the folded read, alone
+//   -DSISO_BND=   0 (default), or 1: the NII and the exact kernel in their
+//                 boundary forms (K4), alone, behind turbotpu_siso_bnd_launch
 // (the variants compile side by side, and a decode builds only its own; the
-// folded kernel is a library of its own so that a decode without the option
-// never waits for its compile).
+// folded and the boundary kernels are libraries of their own so that a
+// decode without them never waits for their compile).
 #if !defined(SISO_MODE) || !defined(SISO_CHAN) || !defined(SISO_EXT)
 #error "compile with -DSISO_MODE=, -DSISO_CHAN= and -DSISO_EXT="
+#endif
+#if SISO_FOLD && SISO_BND
+#error "SISO_FOLD and SISO_BND are separate libraries"
 #endif
 #if SISO_MODE < 0 || SISO_MODE > 2 || SISO_CHAN < 0 || SISO_CHAN > 1 || \
     SISO_EXT < 0 || SISO_EXT > 2
@@ -474,6 +533,29 @@ template <> struct StreamType<2> { using type = int8_t; };
 // idx: null, or in a SISO_FOLD library the (n_win * W,) int32 gather table
 // with values in [0, n_win * W) (nii != 0 only).
 // aw is (W, 8, B) fp32 scratch.  Returns the launch's cudaError_t (0 = ok).
+#if SISO_BND
+// The boundary forms: a_in, b_in, a_out, b_out are (8, B) fp32 (see Edges);
+// off is the chunk's first global row and K the global info length.
+extern "C" int turbotpu_siso_bnd_launch(
+    int mode, int chan_type, int ext_type, int nii, const void* ls,
+    const void* lp, const void* la, void* le, const void* ain, void* aout,
+    void* aw, void* ckpt, const void* a_in, const void* b_in, void* a_out,
+    void* b_out, int off, int B, int K, int n_win, int W, float eff,
+    float inv_q, int threads, void* stream) {
+  if (mode != SISO_MODE || chan_type != SISO_CHAN || ext_type != SISO_EXT)
+    return -1;
+  if (a_in == nullptr || b_in == nullptr || a_out == nullptr ||
+      b_out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Edges e{(const float*)a_in, (const float*)b_in, (float*)a_out,
+                (float*)b_out, off};
+  return (int)launch<StreamType<SISO_CHAN>::type, StreamType<SISO_EXT>::type,
+                     SISO_MODE>(
+      nii != 0, ls, lp, la, nullptr, le, (const float*)ain, (float*)aout,
+      (float*)aw, (float*)ckpt, B, K, n_win, W, eff, inv_q, threads,
+      (cudaStream_t)stream, e);
+}
+#else
 extern "C" int turbotpu_siso_launch(
     int mode, int chan_type, int ext_type, int nii, const void* ls,
     const void* lp, const void* la, const void* idx, void* le,
@@ -485,5 +567,6 @@ extern "C" int turbotpu_siso_launch(
                      SISO_MODE>(
       nii != 0, ls, lp, la, (const int*)idx, le, (const float*)ain,
       (float*)aout, (float*)aw, (float*)ckpt, B, K, n_win, W, eff, inv_q,
-      threads, (cudaStream_t)stream);
+      threads, (cudaStream_t)stream, Edges{});
 }
+#endif

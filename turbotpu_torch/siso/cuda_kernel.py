@@ -16,10 +16,19 @@ non-boundary contracts:
   from row `idx[t]` of the tensor it is given, which is the other SISO's raw
   output, so no gathered copy is made between the half-iterations;
 
+* `siso_bnd_exact`, `siso_bnd_nii` -- K4, the boundary contracts
+  (`boundary=True` with and without nii, `with_offset`) that the
+  sequence-sharded decoder runs on each chunk of the trellis:
+  `siso_cells(..., boundaries=(a0, bT))` returns `(le, aout, bout)`,
+  `siso_cells(..., nii_boundaries=(ain, edge_in, bT))` returns
+  `(le, aout, eout, bout)`, both with an optional `row_offset=`: the
+  a-priori mask becomes `row_offset + t < K_real`, with K_real the global
+  info length.  Edges are `(8, B)` fp32;
+
 each in the three max* modes of `_mstar`/`_mstar_tree` there.  max-log keeps
 the names above; the linlog and log-MAP instantiations count their
 launches as `siso_nii_linlog`, `siso_exact_linlog`, `siso_nii_fold_linlog`,
-`siso_nii_logmap`, `siso_exact_logmap` and `siso_nii_fold_logmap`.
+`siso_bnd_nii_linlog`, `siso_bnd_exact_linlog`, and the same with `_logmap`.
 
 Layout.  All streams are time-major `(T, B)` tensors: the same element order
 at each step as the JAX package's `(cells, T, 8, 128)`, without its batch
@@ -34,7 +43,8 @@ version only for a tensor on the CPU.  `LAUNCHES` counts kernel launches.
 
 The plain versions (`siso_nii_plain`, `siso_exact_plain`; the folded read is
 `siso_nii_plain(..., gather_idx=idx)`, an `index_select` in front of the
-same loop) are a Python loop
+same loop; the boundary forms `siso_bnd_exact_plain`, `siso_bnd_nii_plain`)
+are a Python loop
 over steps that repeats the kernel's arithmetic in the same order (fp32
 metrics, renormalisation every UNROLL steps from the window start, the same
 quantisation), vectorised over the 8 states: where the kernel adds no branch
@@ -62,19 +72,29 @@ THREADS = 32         # codewords per thread block (one warp)
 _MODE_CODES = {MAXLOG: 0, LINLOG: 1, LOGMAP: 2}
 
 
-def kernel_name(nii: bool, mode: str, fold: bool = False) -> str:
+def kernel_name(nii: bool, mode: str, fold: bool = False,
+                bnd: bool = False) -> str:
     """The name a contract/mode instantiation counts its launches under."""
     if fold and not nii:
         raise ValueError("the folded read exists for the NII contract only")
-    base = "siso_nii_fold" if fold else "siso_nii" if nii else "siso_exact"
+    if fold and bnd:
+        raise ValueError("the folded read has no boundary form")
+    if bnd:
+        base = "siso_bnd_nii" if nii else "siso_bnd_exact"
+    else:
+        base = "siso_nii_fold" if fold else "siso_nii" if nii else "siso_exact"
     return base if mode == MAXLOG else f"{base}_{mode}"
 
 
-# (nii, fold) of the three contracts
+# (nii, fold) of the three non-boundary contracts
 CONTRACTS = ((True, False), (False, False), (True, True))
+# nii of the two boundary contracts (K4)
+BND_CONTRACTS = (False, True)
 
 LAUNCHES = {kernel_name(nii, mode, fold): 0
             for mode in (MAXLOG, LINLOG, LOGMAP) for nii, fold in CONTRACTS}
+LAUNCHES.update({kernel_name(nii, mode, bnd=True): 0
+                 for mode in (MAXLOG, LINLOG, LOGMAP) for nii in BND_CONTRACTS})
 
 _CHAN_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 _EXT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -162,7 +182,14 @@ def _extrinsic(alpha, beta, p_row, tb, mode):
 
 
 def _siso_plain(ls, lp, la, ain, K_real, W, scale, ext_qscale, mode=MAXLOG,
-                gather_idx=None):
+                gather_idx=None, edges=None, row_offset=0):
+    """The kernels' arithmetic.  ain None: the exact contract, else NII.
+    edges: None, or the boundary forms' (a_in, b_in), (8, B) fp32 each: the
+    exact contract's chunk-start alpha or the NII contract's window-0 start,
+    and the chunk-end beta.  Returns (le, aout, a_edge, b_edge): aout the NII
+    window table (None for exact), a_edge the exact contract's alpha at the
+    chunk end or the NII contract's last window end, b_edge beta at the chunk
+    start (both None without edges)."""
     T, B = ls.shape
     dev = ls.device
     if gather_idx is not None:       # the folded read: la row t is la[idx[t]]
@@ -171,17 +198,19 @@ def _siso_plain(ls, lp, la, ain, K_real, W, scale, ext_qscale, mode=MAXLOG,
     tb = _Tables(dev)
     f32 = torch.float32
     eff = scale * (ext_qscale if ext_qscale else 1.0)
-    sm = torch.where(torch.arange(T, device=dev) < K_real,
+    sm = torch.where(torch.arange(T, device=dev) + row_offset < K_real,
                      torch.tensor(eff, dtype=f32, device=dev),
                      torch.zeros((), dtype=f32, device=dev))[:, None]
     A = -(la.to(f32) * sm + ls.to(f32))
     P = -lp.to(f32)
     G = torch.stack([torch.zeros_like(P), P, A, A + P], dim=1)   # (T, 4, B)
+    a_first = _e0(B, dev) if edges is None else edges[0]
+    a_edge = b_edge = None
 
     if ain is None:
         # phase 1: forward alpha, one checkpoint per window start
         starts = torch.empty((n_win, 8, B), dtype=f32, device=dev)
-        alpha = _e0(B, dev)
+        alpha = a_first
         for w in range(n_win):
             starts[w] = alpha
             for i in range(n_sub):
@@ -189,15 +218,17 @@ def _siso_plain(ls, lp, la, ain, K_real, W, scale, ext_qscale, mode=MAXLOG,
                     alpha = _alpha_step(alpha, G[t], tb, mode)
                 alpha = _renorm(alpha)
         aout = None
+        if edges is not None:
+            a_edge = alpha
     else:
         starts = ain
         aout = torch.zeros((n_win, 8, B), dtype=f32, device=dev)
 
     le = torch.empty((T, B), dtype=la.dtype, device=dev)
     aw = torch.empty((W, 8, B), dtype=f32, device=dev)
-    beta = _e0(B, dev)
+    beta = _e0(B, dev) if edges is None else edges[1]
     for w in range(n_win - 1, -1, -1):
-        alpha = _e0(B, dev) if (w == 0 and ain is not None) else starts[w]
+        alpha = a_first if (w == 0 and ain is not None) else starts[w]
         for i in range(n_sub):
             for j in range(i * UNROLL, (i + 1) * UNROLL):
                 aw[j] = alpha
@@ -205,6 +236,8 @@ def _siso_plain(ls, lp, la, ain, K_real, W, scale, ext_qscale, mode=MAXLOG,
             alpha = _renorm(alpha)
         if aout is not None and w + 1 < n_win:
             aout[w + 1] = alpha
+        if aout is not None and edges is not None and w == n_win - 1:
+            a_edge = alpha
         for i in range(n_sub):
             i0 = W - (i + 1) * UNROLL
             for j in range(i0 + UNROLL - 1, i0 - 1, -1):
@@ -213,7 +246,9 @@ def _siso_plain(ls, lp, la, ain, K_real, W, scale, ext_qscale, mode=MAXLOG,
                                      la.dtype, ext_qscale)
                 beta = _beta_step(beta, G[t], tb, mode)
             beta = _renorm(beta)
-    return le, aout
+    if edges is not None:
+        b_edge = beta
+    return le, aout, a_edge, b_edge
 
 
 def siso_nii_plain(ls, lp, la, ain, K_real: int, W: int, scale: float = 1.0,
@@ -224,7 +259,7 @@ def siso_nii_plain(ls, lp, la, ain, K_real: int, W: int, scale: float = 1.0,
     `siso_nii_fold` kernels.  Returns (le, aout); aout[0] is zero (the kernel
     leaves it unwritten)."""
     return _siso_plain(ls, lp, la, ain, K_real, W, scale, ext_qscale, mode,
-                       gather_idx)
+                       gather_idx)[:2]
 
 
 def siso_exact_plain(ls, lp, la, K_real: int, W: int, scale: float = 1.0,
@@ -233,78 +268,119 @@ def siso_exact_plain(ls, lp, la, K_real: int, W: int, scale: float = 1.0,
     return _siso_plain(ls, lp, la, None, K_real, W, scale, ext_qscale, mode)[0]
 
 
+def siso_bnd_exact_plain(ls, lp, la, a0, bT, K_real: int, W: int,
+                         scale: float = 1.0, ext_qscale: float = 0.0,
+                         mode: str = MAXLOG, row_offset: int = 0):
+    """Plain version of the `siso_bnd_exact` kernels.  Returns (le, aout,
+    bout): alpha at the chunk end, beta at the chunk start."""
+    le, _, aout, bout = _siso_plain(ls, lp, la, None, K_real, W, scale,
+                                    ext_qscale, mode, edges=(a0, bT),
+                                    row_offset=row_offset)
+    return le, aout, bout
+
+
+def siso_bnd_nii_plain(ls, lp, la, ain, edge_in, bT, K_real: int, W: int,
+                       scale: float = 1.0, ext_qscale: float = 0.0,
+                       mode: str = MAXLOG, row_offset: int = 0):
+    """Plain version of the `siso_bnd_nii` kernels.  Returns (le, aout,
+    eout, bout); aout[0] is zero (the kernel leaves it unwritten)."""
+    return _siso_plain(ls, lp, la, ain, K_real, W, scale, ext_qscale, mode,
+                       edges=(edge_in, bT), row_offset=row_offset)
+
+
 # ----------------------------------------------------------------------
 # kernel wrappers
 # ----------------------------------------------------------------------
 
 def _target(mode_code: int, chan_code: int, ext_code: int,
-            fold: bool = False) -> _build.Target:
+            fold: bool = False, bnd: bool = False) -> _build.Target:
     """csrc/siso.cu compiled for one max* mode and one pair of stream types:
     each variant is a small library of its own (the NII and the exact
-    kernel, or with `fold` the NII kernel with the folded read alone), built
-    when first launched, so a decode builds only what it runs and the
-    variants compile side by side."""
+    kernel; with `fold` the NII kernel with the folded read alone; with
+    `bnd` the two boundary forms), built when first launched, so a decode
+    builds only what it runs and the variants compile side by side."""
     return ("siso", (f"-DSISO_MODE={mode_code}", f"-DSISO_CHAN={chan_code}",
                      f"-DSISO_EXT={ext_code}")
-            + (("-DSISO_FOLD=1",) if fold else ()))
+            + (("-DSISO_FOLD=1",) if fold else ())
+            + (("-DSISO_BND=1",) if bnd else ()))
 
 
 def build_targets() -> list[_build.Target]:
     """Every variant of the kernel source, for building them all at once
     (`_build.build(build_targets())`)."""
-    return [_target(m, c, e, fold) for fold in (False, True)
+    return [_target(m, c, e, fold, bnd)
+            for fold, bnd in ((False, False), (True, False), (False, True))
             for m in _MODE_CODES.values()
             for c in _CHAN_TYPES.values() for e in _EXT_TYPES.values()]
 
 
-def _lib(mode: str, chan: torch.dtype, ext: torch.dtype,
-         fold: bool = False) -> ctypes.CDLL:
+def _launch_fn(mode: str, chan: torch.dtype, ext: torch.dtype,
+               fold: bool = False, bnd: bool = False):
     lib = _build.load(*_target(_MODE_CODES[mode], _CHAN_TYPES[chan],
-                               _EXT_TYPES[ext], fold))
-    fn = lib.turbotpu_siso_launch
+                               _EXT_TYPES[ext], fold, bnd))
+    fn = lib.turbotpu_siso_bnd_launch if bnd else lib.turbotpu_siso_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [i, i, i, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f,
-                       f, i, p]
+        if bnd:
+            fn.argtypes = [i, i, i, i, p, p, p, p, p, p, p, p, p, p, p, p, i,
+                           i, i, i, i, f, f, i, p]
+        else:
+            fn.argtypes = [i, i, i, i, p, p, p, p, p, p, p, p, p, i, i, i, i,
+                           f, f, i, p]
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
-def _launch(ls, lp, la, ain, K_real, W, eff, inv_q, mode, idx=None):
+def _launch(ls, lp, la, ain, K_real, W, eff, inv_q, mode, idx=None,
+            edges=None, row_offset=0):
     """Launch the NII (ain given; with idx its folded form) or exact (ain
-    None) kernel of `mode` on CUDA tensors."""
+    None) kernel of `mode` on CUDA tensors; with edges = (a_in, b_in) its
+    boundary form.  Returns (le, aout, a_edge, b_edge) as _siso_plain."""
     T, B = ls.shape
     n_win = T // W
     dev = ls.device
+    f32 = torch.float32
     le = torch.empty_like(la)
-    aw = torch.empty((W, 8, B), dtype=torch.float32, device=dev)
+    aw = torch.empty((W, 8, B), dtype=f32, device=dev)
     # NII: the fresh window starts; exact: phase 1's checkpoints.
-    ck = torch.empty((n_win, 8, B), dtype=torch.float32, device=dev)
-    nii, fold = ain is not None, idx is not None
-    fn = _lib(mode, ls.dtype, la.dtype, fold).turbotpu_siso_launch
+    ck = torch.empty((n_win, 8, B), dtype=f32, device=dev)
+    nii, fold, bnd = ain is not None, idx is not None, edges is not None
+    fn = _launch_fn(mode, ls.dtype, la.dtype, fold, bnd)
+    codes = (_MODE_CODES[mode], _CHAN_TYPES[ls.dtype], _EXT_TYPES[la.dtype],
+             int(nii))
+    tables = (ain.data_ptr() if nii else None, ck.data_ptr() if nii else None,
+              aw.data_ptr(), None if nii else ck.data_ptr())
+    tail = (B, K_real, n_win, W, eff, inv_q, THREADS)
+    a_edge = b_edge = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        LAUNCHES[kernel_name(nii, mode, fold)] += 1
-        rc = fn(_MODE_CODES[mode], _CHAN_TYPES[ls.dtype], _EXT_TYPES[la.dtype],
-                int(nii),
-                ls.data_ptr(), lp.data_ptr(), la.data_ptr(),
-                idx.data_ptr() if fold else None, le.data_ptr(),
-                ain.data_ptr() if nii else None, ck.data_ptr() if nii else None,
-                aw.data_ptr(), None if nii else ck.data_ptr(),
-                B, K_real, n_win, W, eff, inv_q, THREADS, stream)
+        LAUNCHES[kernel_name(nii, mode, fold, bnd)] += 1
+        if bnd:
+            a_edge = torch.empty((8, B), dtype=f32, device=dev)
+            b_edge = torch.empty((8, B), dtype=f32, device=dev)
+            rc = fn(*codes, ls.data_ptr(), lp.data_ptr(), la.data_ptr(),
+                    le.data_ptr(), *tables, edges[0].data_ptr(),
+                    edges[1].data_ptr(), a_edge.data_ptr(), b_edge.data_ptr(),
+                    row_offset, *tail, stream)
+        else:
+            rc = fn(*codes, ls.data_ptr(), lp.data_ptr(), la.data_ptr(),
+                    idx.data_ptr() if fold else None, le.data_ptr(), *tables,
+                    *tail, stream)
     if rc != 0:
         raise RuntimeError(
             f"siso kernel launch failed: cudaError {rc} "
             f"(T={T}, B={B}, W={W}, chan={ls.dtype}, ext={la.dtype}, "
-            f"nii={nii}, fold={fold}, mode={mode})")
-    return le, (ck if nii else None)
+            f"nii={nii}, fold={fold}, boundary={bnd}, mode={mode})")
+    return le, (ck if nii else None), a_edge, b_edge
 
 
 def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
                K_real: int, mode: str, scale: float = 1.0,
                nii_ckpt: torch.Tensor | None = None, window: int = 0,
                ext_qscale: float = 0.0,
-               gather_idx: torch.Tensor | None = None):
+               gather_idx: torch.Tensor | None = None,
+               boundaries: tuple | None = None,
+               nii_boundaries: tuple | None = None, row_offset: int = 0):
     """Kernel entry: raw LLR streams in, extrinsics out.
 
     ls/lp/la: contiguous (KTp, B) with KTp a multiple of the window; pad
@@ -325,6 +401,23 @@ def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
     output and makes no gathered copy; the result equals the call without
     the option on `la.index_select(0, gather_idx)` bit for bit.  The mask
     [t < K_real] is on the step, after the read.
+
+    boundaries: optional (a0, bT), (8, B) fp32 each (K4, exact): the
+    recursions start from alpha a0 at the chunk's first row and beta bT at
+    its last; returns (le, aout, bout), alpha at the chunk end and beta at
+    its start, (8, B) each.
+
+    nii_boundaries: optional (ain, edge_in, bT) (K4, NII): ain the
+    (n_win, 8, B) window table this kernel wrote last half-iteration (slot 0
+    is never read), edge_in the (8, B) alpha edge received from the
+    neighbouring chunk (e0 on the first), bT as above; returns (le, aout,
+    eout, bout): aout feeds the next call's ain as it is (slot 0 is never
+    written), eout the last window's end alpha, the edge to ship.
+
+    row_offset: with either boundary form, the chunk's first global row: the
+    a-priori mask becomes [row_offset + t < K_real], K_real the global info
+    length.  The three contracts (nii_ckpt, boundaries, nii_boundaries) are
+    mutually exclusive.
     """
     if mode not in MODES:
         raise ValueError(f"unknown max* mode {mode!r}")
@@ -345,14 +438,34 @@ def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
     if KTp % W or W % UNROLL:
         raise ValueError(f"KTp={KTp} must be a multiple of the window {W}, "
                          f"and the window of {UNROLL}")
+    if sum(x is not None for x in (nii_ckpt, boundaries, nii_boundaries)) > 1:
+        raise ValueError("nii_ckpt, boundaries and nii_boundaries are "
+                         "mutually exclusive")
+    if row_offset and boundaries is None and nii_boundaries is None:
+        raise ValueError("row_offset needs a boundary contract")
+    edges = None
+    ain = nii_ckpt
+    if boundaries is not None:
+        edges = tuple(boundaries)
+    elif nii_boundaries is not None:
+        ain, *edges = nii_boundaries
+        edges = tuple(edges)
     tensors = [ls, lp, la]
-    if nii_ckpt is not None:
-        if nii_ckpt.shape != (KTp // W, 8, B) or nii_ckpt.dtype != torch.float32:
-            raise ValueError(f"nii_ckpt must be fp32 of shape "
-                             f"{(KTp // W, 8, B)}, got {nii_ckpt.dtype} "
-                             f"{tuple(nii_ckpt.shape)}")
-        tensors.append(nii_ckpt)
+    if ain is not None:
+        if ain.shape != (KTp // W, 8, B) or ain.dtype != torch.float32:
+            name = "nii_ckpt" if nii_ckpt is not None else "the ain of nii_boundaries"
+            raise ValueError(f"{name} must be fp32 of shape "
+                             f"{(KTp // W, 8, B)}, got {ain.dtype} "
+                             f"{tuple(ain.shape)}")
+        tensors.append(ain)
+    if edges is not None:
+        if len(edges) != 2 or any(e.shape != (8, B) or e.dtype != torch.float32
+                                  for e in edges):
+            raise ValueError(f"boundary edges must be fp32 of shape {(8, B)}")
+        tensors.extend(edges)
     if gather_idx is not None:
+        if edges is not None:
+            raise ValueError("gather_idx has no boundary form")
         if nii_ckpt is None:
             raise ValueError("gather_idx needs the NII contract (nii_ckpt)")
         if gather_idx.shape != (KTp,) or gather_idx.dtype != torch.int32:
@@ -366,15 +479,21 @@ def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
         raise ValueError("all tensors must be contiguous")
 
     if ls.device.type == "cpu":
-        le, ck = _siso_plain(ls, lp, la, nii_ckpt, K_real, W, scale,
-                             ext_qscale, mode, gather_idx)
+        le, ck, a_edge, b_edge = _siso_plain(
+            ls, lp, la, ain, K_real, W, scale, ext_qscale, mode, gather_idx,
+            edges, row_offset)
     elif ls.device.type == "cuda":
         eff = scale * (ext_qscale if ext_qscale else 1.0)
         inv_q = 1.0 / ext_qscale if ext_qscale else 1.0
-        le, ck = _launch(ls, lp, la, nii_ckpt, K_real, W, eff, inv_q, mode,
-                         gather_idx)
+        le, ck, a_edge, b_edge = _launch(ls, lp, la, ain, K_real, W, eff,
+                                         inv_q, mode, gather_idx, edges,
+                                         row_offset)
     else:
         raise ValueError(f"unsupported device {ls.device}")
+    if boundaries is not None:
+        return le, a_edge, b_edge
+    if nii_boundaries is not None:
+        return le, ck, a_edge, b_edge
     return le if nii_ckpt is None else (le, ck)
 
 
