@@ -9,14 +9,17 @@ seq, dist, compact, ber.
 Needs one NVIDIA card, nvcc and no network.  It builds the port's CUDA
 kernels from turbotpu_torch/csrc (siso.cu in all its variants, row_gather.cu,
 issue_rate.cu, ring_xch.cu), holds each against its plain PyTorch version on
-the card, and drives the port's entry points:
+the card (the window-parallel exact kernels also at a batch that is not a
+multiple of their blocks, in one window and with masked rows, at difference
+0), and drives the port's entry points:
 
 * `turbotpu_torch.turbo_decode` on the flagship configuration (LTE K=6144,
   1024 codewords, max-log, 6 iterations, NII window 256, bf16 channel
   streams, int8 extrinsics), checked and timed (phases `decode`, `bench`),
   and the same decode with `fold_gather=True`, which must give the same bits,
   iteration counts and L through the folded kernel alone (phase `fold`, with
-  the row-gather experiment and the corrected modes' folded kernels);
+  the row-gather experiment, timed back to back and as a CUDA graph against
+  torch.index_select, and the corrected modes' folded kernels);
 * `turbotpu_torch.harness.ber.simulate_point`, the Monte-Carlo BER/FER sweep,
   on the acceptance configurations C1, C2, C3, C3-RM and both C4s at full
   width with a frame cap each, the frame-error rate held to the recorded
@@ -338,6 +341,11 @@ def check_kernels(dev, results):
                             f"{e_le} (tolerance {le_tol}), window starts "
                             f"{e_ck} (tolerance {tol}) at K={K} W={W} B={B} "
                             f"{chan}+{ext}")
+                    if name == ck.kernel_name(False, mode) and n_diff:
+                        raise AssertionError(
+                            f"{name} differs from its plain version in "
+                            f"{n_diff} values at K={K} W={W} B={B} "
+                            f"{chan}+{ext}")
                     if tol and ext != "float32":
                         ties[name] += n_diff
                     else:
@@ -425,14 +433,62 @@ def check_kernels(dev, results):
                             "B": Bw, "ms": ms, "plain_ms": None,
                             "bound_ms": bound, "bound_by": by})
                     del wide, ain_w
+    exact_cases = check_exact_edges(dev, worst)
     for name in worst:
         results[name]["max_abs_err"] = worst[name]
         results[name]["rounded_values_differing"] = ties[name]
-    emit("kernels", tolerance=TOLERANCE, cases=cases,
+    emit("kernels", tolerance=TOLERANCE, cases=cases, exact_cases=exact_cases,
          kernels={k: {kk: results[k].get(kk) for kk in (
              "max_abs_err", "rounded_values_differing", "ms", "plain_ms",
              "bound_ms", "bound_by")} for k in worst},
          other_shapes=other_shapes)
+
+
+def check_exact_edges(dev, worst):
+    """The window-parallel exact kernels at the shapes their blocks and
+    passes single out, every mode and stream pair, difference 0: B not a
+    multiple of the 32-codeword block (70, and 1000 at the flagship shape),
+    one window (K=40 in W=48, three segments of 16; in W=64, one segment: no
+    first pass), K_real below the trellis' K (masked rows)."""
+    from turbotpu_torch.harness.bench import make_decode_inputs
+    from turbotpu_torch.siso import cuda_kernel as ck
+    types = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+             "int8": torch.int8}
+    small = ((168, 32, 70, 168), (40, 48, 37, 40), (40, 64, 37, 40),
+             (168, 32, 45, 150))
+    out = []
+    for mode in MODES:
+        scale = 0.75 if mode == "maxlog" else 1.0
+        name = ck.kernel_name(False, mode)
+        shapes = [(shape, pair) for shape in small
+                  for pair in (("bfloat16", "int8"), ("bfloat16", "bfloat16"),
+                               ("float32", "float32"))]
+        if mode == "maxlog":
+            shapes.append(((6144, 256, 1000, 6144), ("bfloat16", "int8")))
+        for (K, W, B, K_real), (chan, ext) in shapes:
+            qs = 0.25 if ext == "int8" else 0.0
+            inputs = make_decode_inputs(K, B, seed=9, ebn0_db=1.0)
+            ls, lp, _, _ = make_streams(inputs, K, W, types[chan], dev)
+            T = ls.shape[0]
+            la, _ = ck.siso_cells(
+                ls, lp, torch.zeros((T, B), dtype=types[ext], device=dev),
+                K_real, mode, scale, window=W, ext_qscale=qs,
+                nii_ckpt=torch.zeros((T // W, 8, B), device=dev))
+            got = ck.siso_cells(ls, lp, la, K_real, mode, scale, window=W,
+                                ext_qscale=qs)
+            want = ck.siso_exact_plain(ls, lp, la, K_real, W, scale, qs, mode)
+            err = float((got.float() - want.float()).abs().max())
+            if err != 0.0 or not torch.equal(got, want):
+                raise AssertionError(
+                    f"{name} differs from its plain version: {err} at K={K} "
+                    f"K_real={K_real} W={W} B={B} {chan}+{ext}")
+            worst[name] = max(worst[name], err)
+            out.append({"name": name, "K": K, "K_real": K_real, "W": W,
+                        "B": B, "n_win": T // W,
+                        "segments": T // ck.exact_segment(T),
+                        "chan": chan, "ext": ext,
+                        "max_abs_err": err})
+    return out
 
 
 def launch_counters():
@@ -527,6 +583,8 @@ def check_decode(dev, results):
 
     rec["small_vs_cpu_L_max_abs_diff"] = small_decode_vs_cpu(
         flagship_config(K=168, window=32, early_term="crc"))
+    rec["small_exact_vs_cpu_L_max_abs_diff"] = small_decode_vs_cpu(
+        flagship_config(K=168, window=32, early_term="crc", nii=False))
     emit("decode", **rec)
 
 
@@ -538,6 +596,8 @@ def run_bench(dev, card, results):
     lean = bench_decode(flagship_config(), B, n_timed=8, ebn0_db=1.0)
     crc = bench_decode(flagship_config(early_term="crc"), B, n_timed=8,
                        ebn0_db=1.0)
+    # the exact contract's decode: 12 launches of the window-parallel kernel
+    exact = bench_decode(flagship_config(nii=False), B, n_timed=8, ebn0_db=1.0)
     # 1024 codewords are 32 warps at one thread per codeword: they cannot fill
     # 132 SMs.  One more line at 16 times the batch (the same 1024 noisy
     # frames tiled: a fixed-iteration decode's time does not depend on data).
@@ -545,7 +605,8 @@ def run_bench(dev, card, results):
     tiled = tuple(x.repeat(16, 1)
                   for x in make_decode_inputs(K, B, seed=0, ebn0_db=1.0))
     big = bench_decode(flagship_config(), big_B, n_timed=2, inputs=tiled)
-    emit("bench", card=card, lean=lean, crc=crc, lean_large_batch=big,
+    emit("bench", card=card, lean=lean, crc=crc, lean_exact=exact,
+         lean_large_batch=big,
          kernel_ms_per_launch={k: v.get("ms") for k, v in results.items()})
 
 
@@ -694,7 +755,8 @@ def check_fold(dev, card, results):
     rec["bench"]["lean_large_batch"] = timed("none", 16 * B, 2, tiled)
     del tiled
 
-    # K7 alone, as the comparison experiments/gather_inkernel.py makes
+    # K7 alone, as the comparison experiments/gather_inkernel.py makes (back
+    # to back and as a CUDA graph, in turns)
     gather, launched = count_launches(results, lambda: gi.main([]))
     if not only(launched, siso_nii=launched["siso_nii"],
                 row_gather=launched["row_gather"]) or not launched["row_gather"]:
@@ -713,6 +775,8 @@ def check_fold(dev, card, results):
     results["row_gather"].update(
         max_abs_err=err, ms=main_row["kernel_ms"],
         library_ms=main_row["index_select_ms"],
+        device_ms=main_row["kernel_device_ms"],
+        library_device_ms=main_row["index_select_device_ms"],
         plain_ms=time_launches(lambda: gi.row_gather_plain(src, idx), 20),
         bound_ms=(2 * T * B + 4 * T) / PEAK_BYTES_PER_S * 1e3,
         bound_by="bytes", shape={"T": T, "B": B, "dtype": "int8"})

@@ -346,7 +346,9 @@ def test_new_kernels_match_plain_on_card(kernel):
                                          gather_idx=idx)
         assert torch.equal(le, le_p) and torch.equal(aout[1:], aout_p[1:])
     elif kernel == "row_gather":
-        for dt, B in ((torch.int8, 1024), (torch.bfloat16, 70),
+        # rows of 16-byte multiples and of every narrower vector width
+        for dt, B in ((torch.int8, 1024), (torch.bfloat16, 16384),
+                      (torch.float32, 4), (torch.bfloat16, 70),
                       (torch.float32, 3), (torch.int8, 7)):
             src = (torch.randn((96, B), device=dev) * 20).to(dt)
             idx = torch.randperm(96, device=dev).to(torch.int32)

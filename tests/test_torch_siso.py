@@ -237,3 +237,23 @@ def test_kernels_match_plain_on_card(chan, ext):
     le_p, aout_p = ck.siso_nii_plain(ls, lp, la, ain, K, W, scale, qs)
     assert torch.equal(le, le_p) and torch.equal(aout[1:], aout_p[1:])
     assert torch.equal(le_x, ck.siso_exact_plain(ls, lp, la, K, W, scale, qs))
+    # the window-parallel exact kernels, every mode: B = 70 is not a
+    # multiple of their 32-codeword blocks; K=40 in one window (of 48: three
+    # segments; of 64: one segment, no first pass); K_real = 150 masks rows
+    # of the K=168 trellis
+    for mode in ("maxlog", "linlog", "logmap"):
+        name = ck.kernel_name(False, mode)
+        for K_, W_, K_real in ((168, 32, 168), (40, 48, 40), (40, 64, 40),
+                               (168, 32, 150)):
+            s_np, p_np = _streams(K_, B, W_, seed=12)
+            ls_, lp_ = (torch.from_numpy(x).to(dev, TORCH_DT[chan])
+                        for x in (s_np, p_np))
+            la_ = ck.siso_cells(ls_, lp_, torch.zeros(
+                ls_.shape, dtype=TORCH_DT[ext], device=dev), K_real, mode,
+                scale, window=W_, ext_qscale=qs)
+            n = ck.LAUNCHES[name]
+            got = ck.siso_cells(ls_, lp_, la_, K_real, mode, scale,
+                                window=W_, ext_qscale=qs)
+            assert ck.LAUNCHES[name] == n + 1
+            assert torch.equal(got, ck.siso_exact_plain(
+                ls_, lp_, la_, K_real, W_, scale, qs, mode)), (mode, K_, W_)

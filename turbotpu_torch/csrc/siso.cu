@@ -6,12 +6,15 @@
 // _extrinsic of the same file, in its two non-boundary contracts:
 //   NII   (nii=True):  window-start alphas come from the previous
 //                      half-iteration (ain), fresh ones go out (aout);
-//   exact (nii=False): phase 1 runs alpha forward and keeps one checkpoint
-//                      per window, phase 2 starts each window from it.
-// Both then walk the windows backward: recompute and store alpha through the
-// window, run beta through it (continuous across windows, exact from e0 at
-// the padded trellis end) and emit the extrinsic
-//   Le = max*(u=0 edges) - max*(u=1 edges).
+//   exact (nii=False): no approximation: every window starts from the true
+//                      alpha and beta at its edges.
+// Both emit the extrinsic
+//   Le = max*(u=0 edges) - max*(u=1 edges)
+// from alpha before each step and beta after it.  The NII kernel walks the
+// windows backward in one thread per codeword: recompute and store alpha
+// through the window, run beta through it (continuous across windows, exact
+// from e0 at the padded trellis end).  The exact contract runs window-
+// parallel (exact_pass1/exact_pass2 below, with their own note).
 // K4, the boundary contracts of the same function (boundary=True, with and
 // without nii, with_offset; consumed by the sequence-sharded decoder): the
 // trellis is one chunk of a longer one, so the recursions start from edge
@@ -59,15 +62,16 @@
 // A first version that copied the table to shared memory once per block
 // measured about 3% slower than this plain form, at 1024 and at 16384
 // codewords.
-// Checkpoints are (n_win, 8, B) fp32, the alpha window scratch (W, 8, B) fp32.
-// One thread decodes one codeword and keeps the 8 state metrics in
+// NII checkpoints are (n_win, 8, B) fp32, its alpha window scratch (W, 8, B)
+// fp32.  One thread decodes one codeword and keeps the 8 state metrics in
 // registers; the trellis permutation is register renaming in the unrolled
 // step.  The kernel allocates nothing: the wrapper passes the scratch.
 //
 // Bound: at the decoder's batch (1024 codewords = 32 warps) the card is
 // mostly empty, and the kernel is bound by latency, not by bytes (about 6 B
 // per step and codeword) or by fp32 issue: one warp's dependent add/max
-// chain over 2 x KTp steps, plus every load it has to wait for.  What the
+// chain over 2 x KTp steps (NII; 3 x KTp for the serial exact schedule that
+// the boundary form keeps), plus every load it has to wait for.  What the
 // design does about it: blocks are one warp wide so the codewords spread
 // over as many SMs as possible, and streams and stored alphas are fetched a
 // block of 8 steps at a time, one block ahead of the arithmetic, into a
@@ -89,6 +93,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #ifndef SISO_FOLD
 #define SISO_FOLD 0
@@ -467,6 +472,353 @@ __global__ void siso_kernel(
   if (BND) store_edge(e.b_out, beta, B, b);  // beta at the chunk start
 }
 
+// ---- the exact contract, window-parallel (K2 and K3's exact rows) --------
+//
+// The serial schedule walks the trellis three times in one thread per
+// codeword.  The exact contract's outputs depend only on alpha and beta at
+// each step, and both are plain recursions from e0 with a renorm after every
+// 8-step block (blocks aligned at multiples of 8 from t = 0).  So the
+// trellis is cut into windows of W steps (W a multiple of 8; the wrapper
+// passes segments of at most 64 steps: any multiple of 8 gives the same
+// values, since every window edge is a block edge), and:
+//   pass 1: alpha runs forward over windows 0..n_win-2 and writes alpha at
+//           each window start (ack[w], w >= 1); at the same time beta runs
+//           backward from e0 at T down to row W and writes beta at each
+//           window end (bck[w], the beta entering window w from above,
+//           w <= n_win-2).  Each walk is T - W dependent steps.  A codeword's
+//           8 states sit on 8 lanes: each lane does its state's step on two
+//           metrics shuffled in from the lanes of the predecessor (or
+//           successor) states, which cuts the dependent chain of a step to a
+//           shuffle, an add and a max* and the instructions per lane to a
+//           few (one thread per codeword, its rows staged the same way,
+//           measured slower in every mode, max-log included).  The rows of
+//           each 8-step block are staged PASS1_DEPTH - 1 blocks ahead
+//           (cp.async into a ring of tiles in shared memory; register loads
+//           where B % 4 != 0); lane s forms row s's A and P, and the 8
+//           lanes exchange them.
+//   pass 2: one thread per (window, codeword) decodes its window alone:
+//           alpha forward from ack[w] (e0 for window 0), keeping alpha at
+//           each 8-step block start in shared memory (W / 8 x 8 fp32 a
+//           thread); then block by block backward, alpha recomputed over the
+//           block from its sub-checkpoint into registers, and beta from
+//           bck[w] (e0 for the last window) steps down the block emitting Le.
+// Every value is produced by the same step functions on the same operands in
+// the same order as the serial schedule (the renorm's max over 8 lanes is a
+// tree, which is exact for fmaxf), so Le is equal bit for bit.  The critical
+// path is T - W + 3W steps instead of 3T, the window alphas never leave the
+// SM, and at the decoder's batch the second pass has n_win x B independent
+// threads (100 x 1024 at the flagship shape with segments of 64).
+// Bound: as the serial kernel, latency and not bytes or issue at the
+// decoder's batch; the first pass's walk, a chain of a shuffle, an add and a
+// max* per step and three shuffle-max levels per renorm, is the critical
+// path.
+constexpr int EXACT_THREADS = 32;  // pass 1 and pass 2 blocks: one warp
+constexpr int PASS1_CW = EXACT_THREADS / 8;  // pass 1: codewords per warp
+constexpr int PASS1_DEPTH = 8;     // row blocks in flight in pass 1
+constexpr unsigned FULL = 0xffffffffu;
+
+// Asynchronous copies global -> shared of N bytes (4, 8 or 16), completed
+// in groups.  Waiting for "all but the newest N groups" is what a register
+// prefetch cannot express: ptxas puts every stream load on one scoreboard,
+// and the first use of a block's rows waits for every load in flight,
+// including those just issued for the blocks ahead (the SASS of this walk
+// with register loads shows it), so each block pays a full load latency.
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src), "n"(N)
+               : "memory");
+#else
+  memcpy(dst, src, N);
+#endif
+}
+__device__ __forceinline__ void cp_async_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;" ::: "memory");
+#endif
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+#endif
+}
+
+// One 8-step block of the rows of a warp's PASS1_CW codewords, as staged:
+// row r of codeword c at [r][c].
+template <typename TC, typename TE>
+struct Tile {
+  TC ls[UNROLL][PASS1_CW];
+  TC lp[UNROLL][PASS1_CW];
+  TE la[UNROLL][PASS1_CW];
+};
+
+// One pass-1 step on the lane's state s of its codeword (lanes 8c..8c+7):
+// the alpha or beta step of alpha_step/beta_step for that state, its two
+// operands shuffled in from the lanes of the predecessor (successor) states.
+template <int MODE>
+__device__ __forceinline__ float walk_step(float m, float A, float P, int src0,
+                                           int src1, bool par0, bool par1) {
+  const float AP = __fadd_rn(A, P);
+  float c0 = __shfl_sync(FULL, m, src0);
+  const float m1 = __shfl_sync(FULL, m, src1);
+  if (par0) c0 = __fadd_rn(c0, P);
+  const float c1 = __fadd_rn(m1, par1 ? AP : A);
+  return mstar<MODE>(c0, c1);
+}
+
+// renorm over the 8 lanes of a codeword (fmaxf is exact, so the order of the
+// reduction does not matter)
+__device__ __forceinline__ float renorm8(float m) {
+  float mx = fmaxf(m, __shfl_xor_sync(FULL, m, 1));
+  mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+  mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 4));
+  return __fsub_rn(m, mx);
+}
+
+// One walk of pass 1 for the lane's (codeword b, state s).  Block i covers
+// rows i*8.. (forward) or T - (i+1)*8.. (backward), fetched PASS1_DEPTH - 1
+// blocks ahead of the arithmetic.  STAGED (B % 4 == 0, aligned streams): 24
+// lanes each copy one row of one stream for the warp's 4 codewords into a
+// ring of tiles in shared memory; otherwise lane s loads row s of each
+// stream into registers.  Lane s forms row s's A and P, and the 8 lanes of
+// the codeword exchange them.  (Doing that for block i + 1 before block i's
+// steps, to overlap their chain, measured 15-30% slower on an H100.)
+template <int MODE, bool FWD, bool STAGED, typename TC, typename TE>
+__device__ __forceinline__ void walk(const TC* __restrict__ ls,
+                                     const TC* __restrict__ lp,
+                                     const TE* __restrict__ la, float* ck,
+                                     int64_t B, int64_t b, bool live, int K,
+                                     int n_win, int W, float eff,
+                                     Tile<TC, TE>* tiles) {
+  const int lane = threadIdx.x, s = lane & 7, g = lane & ~7, c = lane >> 3;
+  const int src0 = g | (FWD ? t_prev(s, 0) : t_next(s, 0));
+  const int src1 = g | (FWD ? t_prev(s, 1) : t_next(s, 1));
+  const bool par0 = FWD ? t_prev_par(s, 0) : t_par(s, 0);
+  const bool par1 = FWD ? t_prev_par(s, 1) : t_par(s, 1);
+  const int T = n_win * W;
+  const int nb = (n_win - 1) * W / UNROLL, nsub = W / UNROLL;
+  auto row0 = [&](int i) { return FWD ? i * UNROLL : T - (i + 1) * UNROLL; };
+  TC rls[PASS1_DEPTH], rlp[PASS1_DEPTH];
+  TE rla[PASS1_DEPTH];
+  // block i into slot d (a group of copies, committed even when empty)
+  auto fetch = [&](int i, int d) {
+    if constexpr (STAGED) {
+      if (i < nb) {
+        const int64_t o = (int64_t)(row0(i) + s) * B + (b - c);
+        if (c == 0) cp_async<PASS1_CW * sizeof(TC)>(tiles[d].ls[s], ls + o);
+        if (c == 1) cp_async<PASS1_CW * sizeof(TC)>(tiles[d].lp[s], lp + o);
+        if (c == 2) cp_async<PASS1_CW * sizeof(TE)>(tiles[d].la[s], la + o);
+      }
+      cp_async_commit();
+    } else {
+      if (i >= nb) return;
+      const int64_t o = (int64_t)(row0(i) + s) * B + b;
+      rls[d] = ls[o];
+      rlp[d] = lp[o];
+      rla[d] = la[o];
+    }
+  };
+  // A and P of the 8 rows of block i (slot d) on every lane of the codeword:
+  // lane s forms row s's (Streams::metrics), then they are exchanged
+  auto metrics = [&](int i, int d, float (&A)[UNROLL], float (&P)[UNROLL]) {
+    TC vls, vlp;
+    TE vla;
+    if constexpr (STAGED) {
+      cp_async_wait<PASS1_DEPTH - 2>();  // block i's group has landed
+      __syncwarp();
+      vls = tiles[d].ls[s][c];
+      vlp = tiles[d].lp[s][c];
+      vla = tiles[d].la[s][c];
+    } else {
+      vls = rls[d];
+      vlp = rlp[d];
+      vla = rla[d];
+    }
+    const float sm = (row0(i) + s < K) ? eff : 0.0f;
+    const float a_s = -__fadd_rn(__fmul_rn(to_f(vla), sm), to_f(vls));
+    const float p_s = -to_f(vlp);
+#pragma unroll
+    for (int jj = 0; jj < UNROLL; ++jj) {
+      A[jj] = __shfl_sync(FULL, a_s, g | jj);
+      P[jj] = __shfl_sync(FULL, p_s, g | jj);
+    }
+  };
+  float m = s == 0 ? 0.0f : -BIG;  // e0
+#pragma unroll
+  for (int j = 0; j < PASS1_DEPTH - 1; ++j) fetch(j, j);
+  int in_win = 0, n_ck = 0;  // blocks into the window; checkpoints written
+  for (int k = 0; k < nb; k += PASS1_DEPTH) {
+#pragma unroll
+    for (int j = 0; j < PASS1_DEPTH; ++j) {
+      const int i = k + j;
+      if (i < nb) {
+        float A[UNROLL], P[UNROLL];
+        metrics(i, j, A, P);
+        // into block i - 1's slot, which every lane has read
+        fetch(i + PASS1_DEPTH - 1, (j + PASS1_DEPTH - 1) % PASS1_DEPTH);
+        if (FWD) {
+#pragma unroll
+          for (int jj = 0; jj < UNROLL; ++jj)
+            m = walk_step<MODE>(m, A[jj], P[jj], src0, src1, par0, par1);
+        } else {
+#pragma unroll
+          for (int jj = UNROLL - 1; jj >= 0; --jj)
+            m = walk_step<MODE>(m, A[jj], P[jj], src0, src1, par0, par1);
+        }
+        m = renorm8(m);
+        // at a window edge: alpha at the next window's start, beta at the
+        // previous one's end
+        if (++in_win == nsub) {
+          in_win = 0;
+          ++n_ck;
+          if (live)
+            ck[((int64_t)(FWD ? n_ck : n_win - 1 - n_ck) * 8 + s) * B + b] = m;
+        }
+      }
+    }
+  }
+}
+
+// Pass 1: blockIdx.y 0 walks alpha, 1 walks beta, PASS1_CW codewords a warp,
+// 8 lanes each.  Lanes of codewords past B walk the last codeword and store
+// nothing: every lane takes part in every shuffle.
+template <int MODE, bool STAGED, typename TC, typename TE>
+__global__ void exact_pass1(const TC* __restrict__ ls,
+                            const TC* __restrict__ lp,
+                            const TE* __restrict__ la, float* __restrict__ ack,
+                            float* __restrict__ bck, int B_, int K, int n_win,
+                            int W, float eff) {
+  __shared__ __align__(16) Tile<TC, TE> tiles[STAGED ? PASS1_DEPTH : 1];
+  const int64_t B = B_;
+  const int64_t bq = (int64_t)blockIdx.x * PASS1_CW + (threadIdx.x >> 3);
+  const bool live = bq < B;
+  const int64_t b = live ? bq : B - 1;
+  if (blockIdx.y == 0)
+    walk<MODE, true, STAGED>(ls, lp, la, ack, B, b, live, K, n_win, W, eff,
+                             tiles);
+  else
+    walk<MODE, false, STAGED>(ls, lp, la, bck, B, b, live, K, n_win, W, eff,
+                              tiles);
+}
+
+// Pass 2, one backward block at t0 (window block i): alpha over the block
+// recomputed from its sub-checkpoint (the alpha before each step, no renorm
+// inside a block), then Le and beta from the block's last row down.  The
+// next block down is fetched first.
+template <int MODE, typename TC, typename TE>
+__device__ __forceinline__ void exact_block(
+    const Streams<TC, TE, false>& st, int t0, bool more,
+    const Rows<TC, TE>& cur, Rows<TC, TE>& nxt, const float* sub,
+    float (&beta)[8], TE* __restrict__ le, float inv_q) {
+  float A[UNROLL], P[UNROLL];
+  st.metrics(cur, t0, A, P);
+  if (more) st.fetch(t0 - UNROLL, nxt);
+  float at[UNROLL][8];
+#pragma unroll
+  for (int s = 0; s < 8; ++s) at[0][s] = sub[s * EXACT_THREADS];
+#pragma unroll
+  for (int j = 0; j + 1 < UNROLL; ++j) {
+#pragma unroll
+    for (int s = 0; s < 8; ++s) at[j + 1][s] = at[j][s];
+    alpha_step<MODE>(at[j + 1], A[j], P[j]);
+  }
+#pragma unroll
+  for (int j = UNROLL - 1; j >= 0; --j) {
+    st_le(le + (int64_t)(t0 + j) * st.B + st.b,
+          extrinsic<MODE>(at[j], beta, P[j]), inv_q);
+    beta_step<MODE>(beta, A[j], P[j]);
+  }
+  renorm(beta);
+}
+
+template <int MODE, typename TC, typename TE>
+__global__ void exact_pass2(const TC* __restrict__ ls,
+                            const TC* __restrict__ lp,
+                            const TE* __restrict__ la, TE* __restrict__ le,
+                            const float* __restrict__ ack,
+                            const float* __restrict__ bck, int B_, int K,
+                            int n_win, int W, float eff, float inv_q) {
+  // the sub-checkpoints of the block's EXACT_THREADS codewords: (W / UNROLL,
+  // 8, EXACT_THREADS) fp32, state s of block i of lane l at (i*8 + s)*32 + l
+  extern __shared__ float exact_sub[];
+  const int64_t B = B_;
+  const int lane = threadIdx.x;
+  const int64_t b = (int64_t)blockIdx.x * EXACT_THREADS + lane;
+  if (b >= B) return;  // each thread reads only its own shared memory
+  const Streams<TC, TE, false> st{ls, lp, la, nullptr, B, b, K, eff};
+  const int w = blockIdx.y, base = w * W, nsub = W / UNROLL;
+  float* sub = exact_sub + lane;
+  Rows<TC, TE> r0, r1;
+
+  float alpha[8];
+  if (w == 0) init_e0(alpha);
+  else load_edge(alpha, ack + (int64_t)w * 8 * B, B, b);
+  st.fetch(base, r0);
+  // forward: alpha at each block start; the last block's steps are unused
+  for (int i = 0; i < nsub; i += 2) {
+#pragma unroll
+    for (int s = 0; s < 8; ++s) sub[(i * 8 + s) * EXACT_THREADS] = alpha[s];
+    if (i + 1 == nsub) break;
+    alpha_block<MODE>(st, base + i * UNROLL, true, r0, r1, alpha, nullptr, 0);
+#pragma unroll
+    for (int s = 0; s < 8; ++s)
+      sub[((i + 1) * 8 + s) * EXACT_THREADS] = alpha[s];
+    if (i + 2 == nsub) break;
+    alpha_block<MODE>(st, base + (i + 1) * UNROLL, true, r1, r0, alpha,
+                      nullptr, 0);
+  }
+
+  float beta[8];
+  if (w == n_win - 1) init_e0(beta);
+  else load_edge(beta, bck + (int64_t)w * 8 * B, B, b);
+  st.fetch(base + W - UNROLL, r0);
+  for (int i = nsub - 1; i >= 0; i -= 2) {
+    exact_block<MODE>(st, base + i * UNROLL, i > 0, r0, r1,
+                      sub + i * 8 * EXACT_THREADS, beta, le, inv_q);
+    if (i == 0) break;
+    exact_block<MODE>(st, base + (i - 1) * UNROLL, i > 1, r1, r0,
+                      sub + (i - 1) * 8 * EXACT_THREADS, beta, le, inv_q);
+  }
+}
+
+// Both passes on one stream; ck is (2, n_win, 8, B) fp32: alpha checkpoints
+// (slot 0 unused), then beta checkpoints (slot n_win - 1 unused).
+template <typename TC, typename TE, int MODE>
+cudaError_t launch_exact(const void* ls, const void* lp, const void* la,
+                         void* le, float* ck, int B, int K, int n_win, int W,
+                         float eff, float inv_q, cudaStream_t stream) {
+  float* ack = ck;
+  float* bck = ck + (int64_t)n_win * 8 * B;
+  const unsigned gx = (unsigned)((B + EXACT_THREADS - 1) / EXACT_THREADS);
+  if (n_win > 1) {
+    const dim3 g1((unsigned)((B + PASS1_CW - 1) / PASS1_CW), 2);
+    // staged: every warp's rows are whole aligned pieces of 4 codewords
+    const bool staged =
+        B % PASS1_CW == 0 &&
+        ((uintptr_t)ls | (uintptr_t)lp | (uintptr_t)la) % 16 == 0;
+    if (staged)
+      exact_pass1<MODE, true, TC, TE><<<g1, dim3(EXACT_THREADS), 0, stream>>>(
+          (const TC*)ls, (const TC*)lp, (const TE*)la, ack, bck, B, K, n_win,
+          W, eff);
+    else
+      exact_pass1<MODE, false, TC, TE><<<g1, dim3(EXACT_THREADS), 0, stream>>>(
+          (const TC*)ls, (const TC*)lp, (const TE*)la, ack, bck, B, K, n_win,
+          W, eff);
+  }
+  // the wrapper's segments (at most 64 steps) take 8 KB; windows above 384
+  // steps would need the opt-in beyond 48 KB, which no caller asks for
+  const size_t smem = (size_t)W * 8 * EXACT_THREADS * sizeof(float) / UNROLL;
+  if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  exact_pass2<MODE, TC, TE><<<dim3(gx, n_win), dim3(EXACT_THREADS), smem,
+                              stream>>>((const TC*)ls, (const TC*)lp,
+                                        (const TE*)la, (TE*)le, ack, bck, B,
+                                        K, n_win, W, eff, inv_q);
+  return cudaGetLastError();
+}
+
 template <typename TC, typename TE, int MODE>
 cudaError_t launch(bool nii, const void* ls, const void* lp, const void* la,
                    const int* idx, void* le, const float* ain, float* aout,
@@ -486,10 +838,13 @@ cudaError_t launch(bool nii, const void* ls, const void* lp, const void* la,
     siso_kernel<TC, TE, true, MODE, false, BND><<<grid, block, 0, stream>>>(
         (const TC*)ls, (const TC*)lp, (const TE*)la, idx, (TE*)le, ain, aout,
         aw, ckpt, B, K, n_win, W, eff, inv_q, e);
-  } else {
+  } else if constexpr (BND) {
     siso_kernel<TC, TE, false, MODE, false, BND><<<grid, block, 0, stream>>>(
         (const TC*)ls, (const TC*)lp, (const TE*)la, idx, (TE*)le, ain, aout,
         aw, ckpt, B, K, n_win, W, eff, inv_q, e);
+  } else {
+    return launch_exact<TC, TE, MODE>(ls, lp, la, le, ckpt, B, K, n_win, W,
+                                      eff, inv_q, stream);
   }
 #endif
   return cudaGetLastError();
@@ -529,10 +884,13 @@ template <> struct StreamType<2> { using type = int8_t; };
 // mode, chan_type, ext_type: the caller's codes, which must be this
 // library's (else -1).
 // nii != 0:  ain/aout are (n_win, 8, B) fp32, ckpt unused (may be null);
-// nii == 0:  ckpt is (n_win, 8, B) fp32 scratch, ain/aout unused.
+// nii == 0:  ckpt is scratch (below), ain/aout unused.
 // idx: null, or in a SISO_FOLD library the (n_win * W,) int32 gather table
 // with values in [0, n_win * W) (nii != 0 only).
-// aw is (W, 8, B) fp32 scratch.  Returns the launch's cudaError_t (0 = ok).
+// aw is (W, 8, B) fp32 scratch, except for the exact contract of the plain
+// library (SISO_BND=0), where ckpt is (2, n_win, 8, B) fp32 (the alpha and
+// the beta window checkpoints) and aw is unused (may be null).  Returns the
+// launch's cudaError_t (0 = ok), the first failing one of its launches.
 #if SISO_BND
 // The boundary forms: a_in, b_in, a_out, b_out are (8, B) fp32 (see Edges);
 // off is the chunk's first global row and K the global info length.

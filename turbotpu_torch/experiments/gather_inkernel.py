@@ -21,6 +21,8 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import struct
+import threading
 
 import numpy as np
 import torch
@@ -30,6 +32,10 @@ from .._device import resolve_device
 
 LAUNCHES = {"row_gather": 0}
 TARGET: _build.Target = ("row_gather", ())
+_ELEMENT_SIZES = (1, 2, 4)
+_ARGS = struct.Struct("6q")     # the kernel's argument block
+_launch = None                  # (C entry point, raw-stream getter)
+_blocks = threading.local()     # one argument block per thread
 
 
 def row_gather_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -37,14 +43,30 @@ def row_gather_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return src[idx.to(torch.long)]
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(*TARGET)
-    fn = lib.turbotpu_row_gather_launch
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, ctypes.c_int, ctypes.c_int64, p]
+def _resolve():
+    """The kernel's C entry point and the current-stream getter, resolved
+    once.  The entry takes one pointer to six int64 arguments: a typed
+    ctypes call converts every argument, which costs several microseconds a
+    call on the host."""
+    global _launch
+    if _launch is None:
+        fn = _build.load(*TARGET).turbotpu_row_gather_launch
         fn.restype = ctypes.c_int
-    return lib
+        raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+        stream = raw or (lambda i: torch.cuda.current_stream(i).cuda_stream)
+        _launch = (fn, stream)
+    return _launch
+
+
+def _arg_block():
+    """This thread's argument block and its address (ctypes releases the GIL
+    during the call, so threads must not share one)."""
+    blk = getattr(_blocks, "blk", None)
+    if blk is None:
+        buf = bytearray(_ARGS.size)
+        arr = (ctypes.c_char * _ARGS.size).from_buffer(buf)
+        blk = _blocks.blk = (buf, ctypes.c_void_p(ctypes.addressof(arr)), arr)
+    return blk
 
 
 def row_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -52,34 +74,75 @@ def row_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
     src: contiguous (T, B) of a 1-, 2- or 4-byte type; idx: contiguous (T,)
     int32 with values in [0, T), on the same device."""
-    if src.dim() != 2 or src.element_size() not in (1, 2, 4):
+    shape = src.shape
+    if len(shape) != 2 or src.element_size() not in _ELEMENT_SIZES:
         raise ValueError("src must be a (T, B) tensor of 1-, 2- or 4-byte "
-                         f"elements, got {src.dtype} {tuple(src.shape)}")
-    T, B = src.shape
-    if idx.shape != (T,) or idx.dtype != torch.int32:
+                         f"elements, got {src.dtype} {tuple(shape)}")
+    T, B = shape
+    if idx.dtype != torch.int32 or idx.shape != (T,):
         raise ValueError(f"idx must be int32 of shape {(T,)}, got "
                          f"{idx.dtype} {tuple(idx.shape)}")
-    if idx.device != src.device:
+    dev = src.device
+    if idx.device != dev:
         raise ValueError("src and idx must lie on one device")
     if not (src.is_contiguous() and idx.is_contiguous()):
         raise ValueError("src and idx must be contiguous")
-    if src.device.type == "cpu":
-        return row_gather_plain(src, idx)
-    if src.device.type != "cuda":
-        raise ValueError(f"unsupported device {src.device}")
+    if dev.type != "cuda":
+        if dev.type == "cpu":
+            return row_gather_plain(src, idx)
+        raise ValueError(f"unsupported device {dev}")
     out = torch.empty_like(src)
     if T == 0 or B == 0:
         return out
-    fn = _lib().turbotpu_row_gather_launch
-    with torch.cuda.device(src.device):
-        LAUNCHES["row_gather"] += 1
-        rc = fn(src.data_ptr(), idx.data_ptr(), out.data_ptr(), T,
-                B * src.element_size(),
-                torch.cuda.current_stream(src.device).cuda_stream)
+    fn, stream = _resolve()
+    buf, ptr, _ = _arg_block()
+    row_bytes = B * src.element_size()
+    s, o = src.data_ptr(), out.data_ptr()
+    index = dev.index
+    if index == torch.cuda.current_device():
+        _ARGS.pack_into(buf, 0, s, idx.data_ptr(), o, T, row_bytes,
+                        stream(index))
+        rc = fn(ptr)
+    else:
+        with torch.cuda.device(index):
+            _ARGS.pack_into(buf, 0, s, idx.data_ptr(), o, T, row_bytes,
+                            stream(index))
+            rc = fn(ptr)
     if rc != 0:
         raise RuntimeError(f"row_gather launch failed: cudaError {rc} "
                            f"(T={T}, B={B}, {src.dtype})")
+    LAUNCHES["row_gather"] += 1
     return out
+
+
+def graph_ms(fn, n: int, n_replays: int = 5) -> float:
+    """Device time of one call of `fn`: n calls captured in a CUDA graph,
+    replayed `n_replays` times between two CUDA events, per call.  The host
+    enqueues one graph per replay, so the time is the device's alone.  The
+    calls made while the graph is captured launch nothing, so they are taken
+    out of `LAUNCHES` again; the replays do not pass through the wrapper and
+    are not counted either."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):        # warm-up outside the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    counted = dict(LAUNCHES)
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    LAUNCHES.update(counted)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n_replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (n * n_replays)
 
 
 def siso_ns_per_row(T: int, B: int, K: int, W: int, dev, n: int = 5) -> float:
@@ -107,7 +170,11 @@ def main(argv=None, device="cuda", batches=(1024, 16384), n_timed: int = 20
     extrinsic stream shapes ((6400, B): K=6144 padded to the window of 256)
     for int8 and bfloat16, through a random permutation and through the
     K=6144 interleaver table, and set them beside the SISO kernel's time per
-    trellis row.  Returns (and with --out writes) the record."""
+    trellis row.  Each pair is timed two ways, in turns within the call:
+    `n_timed` calls back to back between two CUDA events (what a caller
+    waits, the host's enqueue included) and as a CUDA graph of the same calls
+    (the device's time alone).  Returns (and with --out writes) the
+    record."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="write the record here")
     args = ap.parse_args(argv)
@@ -126,33 +193,49 @@ def main(argv=None, device="cuda", batches=(1024, 16384), n_timed: int = 20
     }
     out = {"T": T, "K": K, "W": W, "card": card_info(),
            "device": torch.cuda.get_device_name(dev), "rows": []}
-    for B in batches:
-        k1 = siso_ns_per_row(T, B, K, W, dev)
-        for dt in (torch.int8, torch.bfloat16):
-            src = (torch.randn((T, B), device=dev) * 20).to(dt)
-            for name, tab in tables.items():
-                idx = torch.from_numpy(tab).to(dev)
-                idx64 = idx.to(torch.long)
-                got = row_gather(src, idx)
-                if not torch.equal(got, row_gather_plain(src, idx)):
-                    raise AssertionError(
-                        f"row_gather differs from its plain version at "
-                        f"B={B} {dt} {name}")
-                ker = event_ms(lambda: row_gather(src, idx), n_timed)
-                lib = event_ms(lambda: src.index_select(0, idx64), n_timed)
-                out["rows"].append({
-                    "B": B, "dtype": str(dt).split(".")[1], "index": name,
-                    "row_bytes": B * src.element_size(),
-                    "kernel_ms": ker, "index_select_ms": lib,
-                    "kernel_ns_per_row": ker * 1e6 / T,
-                    "index_select_ns_per_row": lib * 1e6 / T,
-                    "kernel_over_index_select": ker / lib,
-                    "siso_nii_ns_per_row": k1,
-                    # the most a folded read can save of one half-iteration:
-                    # the materialised gather's share of kernel + gather
-                    "index_select_share_of_half_iteration":
-                        lib * 1e6 / T / (k1 + lib * 1e6 / T),
-                })
+    cases = [(B, dt, name) for B in batches
+             for dt in (torch.int8, torch.bfloat16) for name in tables]
+    k1 = {}
+    for B, dt, name in cases:
+        if B not in k1:
+            k1[B] = siso_ns_per_row(T, B, K, W, dev)
+        src = (torch.randn((T, B), device=dev) * 20).to(dt)
+        idx = torch.from_numpy(tables[name]).to(dev)
+        idx64 = idx.to(torch.long)
+        got = row_gather(src, idx)
+        if not torch.equal(got, row_gather_plain(src, idx)):
+            raise AssertionError(f"row_gather differs from its plain version "
+                                 f"at B={B} {dt} {name}")
+        kern = lambda: row_gather(src, idx)
+        lib = lambda: src.index_select(0, idx64)
+        # in turns: kernel, library, library, kernel, each way
+        b2b = {"k": [], "l": []}
+        dev_t = {"k": [], "l": []}
+        for key, f in (("k", kern), ("l", lib), ("l", lib), ("k", kern)):
+            b2b[key].append(event_ms(f, n_timed))
+        for key, f in (("k", kern), ("l", lib), ("l", lib), ("k", kern)):
+            dev_t[key].append(graph_ms(f, n_timed))
+        mean = lambda v: sum(v) / len(v)
+        ker, lib_ms = mean(b2b["k"]), mean(b2b["l"])
+        ker_dev, lib_dev = mean(dev_t["k"]), mean(dev_t["l"])
+        out["rows"].append({
+            "B": B, "dtype": str(dt).split(".")[1], "index": name,
+            "row_bytes": B * src.element_size(),
+            "kernel_ms": ker, "index_select_ms": lib_ms,
+            "kernel_device_ms": ker_dev, "index_select_device_ms": lib_dev,
+            "kernel_ms_turns": b2b["k"], "index_select_ms_turns": b2b["l"],
+            "kernel_device_ms_turns": dev_t["k"],
+            "index_select_device_ms_turns": dev_t["l"],
+            "kernel_ns_per_row": ker * 1e6 / T,
+            "index_select_ns_per_row": lib_ms * 1e6 / T,
+            "kernel_over_index_select": ker / lib_ms,
+            "kernel_over_index_select_device": ker_dev / lib_dev,
+            "siso_nii_ns_per_row": k1[B],
+            # the most a folded read can save of one half-iteration: the
+            # materialised gather's share of kernel + gather
+            "index_select_share_of_half_iteration":
+                lib_ms * 1e6 / T / (k1[B] + lib_ms * 1e6 / T),
+        })
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)

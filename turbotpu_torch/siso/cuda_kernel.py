@@ -7,8 +7,9 @@ non-boundary contracts:
 
 * `siso_nii`   -- nii=True: window-start alphas inherited from the previous
   half-iteration (`ain`), fresh ones returned (`aout`);
-* `siso_exact` -- nii=False: two-phase checkpoint/recompute, no
-  approximation;
+* `siso_exact` -- nii=False: no approximation; the kernel runs it
+  window-parallel (two launches per call, counted once: alpha and beta walks
+  that leave checkpoints at segment edges, then every segment decoded alone);
 
 * `siso_nii_fold` -- the NII contract with the extrinsic interleave folded
   into the kernel's a-priori read (the reference's `fold_gather=True` call,
@@ -106,6 +107,18 @@ def _round_up(x: int, m: int) -> int:
 
 def window_len(KT: int) -> int:
     return 128 if KT >= 256 else _round_up(KT, UNROLL)
+
+
+def exact_segment(T: int) -> int:
+    """The unit of the exact kernel's second pass: the largest power of two
+    up to 64 that divides the padded trellis length T (a multiple of 8).
+    The exact contract's output does not depend on the window (its
+    checkpoints sit on 8-step renorm edges), so the kernel decodes segments
+    shorter than the window: more independent threads, less shared memory."""
+    seg = 64
+    while T % seg:
+        seg //= 2
+    return seg
 
 
 def _quantize_le(le: torch.Tensor, dt: torch.dtype, qscale: float) -> torch.Tensor:
@@ -341,15 +354,26 @@ def _launch(ls, lp, la, ain, K_real, W, eff, inv_q, mode, idx=None,
     dev = ls.device
     f32 = torch.float32
     le = torch.empty_like(la)
-    aw = torch.empty((W, 8, B), dtype=f32, device=dev)
-    # NII: the fresh window starts; exact: phase 1's checkpoints.
-    ck = torch.empty((n_win, 8, B), dtype=f32, device=dev)
     nii, fold, bnd = ain is not None, idx is not None, edges is not None
+    # The exact contract (not its boundary form) runs window-parallel over
+    # segments of exact_segment(T) steps: its scratch is the alpha and the
+    # beta checkpoints at the segment edges, (2, T / seg, 8, B), and it keeps
+    # the segment alphas on chip.  The other forms take the (W, 8, B) alpha
+    # window scratch and (n_win, 8, B) checkpoints (NII: the fresh window
+    # starts; boundary exact: phase 1's).
+    parallel = not (nii or bnd)
+    if parallel:
+        W = exact_segment(T)
+        n_win = T // W
+    aw = None if parallel else torch.empty((W, 8, B), dtype=f32, device=dev)
+    ck = torch.empty(((2,) if parallel else ()) + (n_win, 8, B), dtype=f32,
+                     device=dev)
     fn = _launch_fn(mode, ls.dtype, la.dtype, fold, bnd)
     codes = (_MODE_CODES[mode], _CHAN_TYPES[ls.dtype], _EXT_TYPES[la.dtype],
              int(nii))
     tables = (ain.data_ptr() if nii else None, ck.data_ptr() if nii else None,
-              aw.data_ptr(), None if nii else ck.data_ptr())
+              None if parallel else aw.data_ptr(),
+              None if nii else ck.data_ptr())
     tail = (B, K_real, n_win, W, eff, inv_q, THREADS)
     a_edge = b_edge = None
     with torch.cuda.device(dev):
