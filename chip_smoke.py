@@ -9,9 +9,10 @@ seq, dist, compact, ber.
 Needs one NVIDIA card, nvcc and no network.  It builds the port's CUDA
 kernels from turbotpu_torch/csrc (siso.cu in all its variants, row_gather.cu,
 issue_rate.cu, ring_xch.cu), holds each against its plain PyTorch version on
-the card (the window-parallel exact kernels also at a batch that is not a
-multiple of their blocks, in one window and with masked rows, at difference
-0), and drives the port's entry points:
+the card (the window-parallel exact and NII kernels at difference 0, also at
+batches that are not a multiple of their blocks, in one window and with
+masked rows; their two passes timed apart at the flagship shape), and
+drives the port's entry points:
 
 * `turbotpu_torch.turbo_decode` on the flagship configuration (LTE K=6144,
   1024 codewords, max-log, 6 iterations, NII window 256, bf16 channel
@@ -40,8 +41,10 @@ multiple of their blocks, in one window and with masked rows, at difference
   monolithic decode bit for bit, with the K6 exchange (`boundary_xch="dma"`)
   against the ring shift bit for bit, at seq=2 against the monolithic decode
   of the same frames, and small against the CPU (phase `seq`); K6 (`ring_xch`)
-  against its plain version over 100 exchanges, and
-  `dist.data_parallel` through NCCL with a world of one (phase `dist`);
+  against its plain version over 100 exchanges, timed back to back and as a
+  CUDA graph against two torch.roll calls, its error flag raising at the end
+  of a sequence decode, and `dist.data_parallel` through NCCL with a world
+  of one (phase `dist`);
 * `turbotpu_torch.harness.compact.bench_compaction` and the compacted sweeps
   (`simulate_point(compact_stage1=, compact_flush=)`), whose counts must
   equal the plain ones on the same frames (phase `compact`);
@@ -329,6 +332,8 @@ def check_kernels(dev, results):
                     compared.append((fold_name, le_f, le_fp, aout_f[1:],
                                      aout_fp[1:]))
                     case["fold_vs_materialised_max_abs_diff"] = 0.0
+                parallel = (ck.kernel_name(False, mode),
+                            ck.kernel_name(True, mode))
                 for name, got, want, ck_got, ck_want in compared:
                     e_le, le_tol = le_error(got, want, tol)
                     e_ck = (0.0 if ck_got is None
@@ -341,11 +346,13 @@ def check_kernels(dev, results):
                             f"{e_le} (tolerance {le_tol}), window starts "
                             f"{e_ck} (tolerance {tol}) at K={K} W={W} B={B} "
                             f"{chan}+{ext}")
-                    if name == ck.kernel_name(False, mode) and n_diff:
+                    # the window-parallel kernels (exact and NII) are
+                    # held to difference 0 in every mode
+                    if name in parallel and (n_diff or e_ck):
                         raise AssertionError(
                             f"{name} differs from its plain version in "
-                            f"{n_diff} values at K={K} W={W} B={B} "
-                            f"{chan}+{ext}")
+                            f"{n_diff} values of le (window starts "
+                            f"{e_ck}) at K={K} W={W} B={B} {chan}+{ext}")
                     if tol and ext != "float32":
                         ties[name] += n_diff
                     else:
@@ -392,6 +399,19 @@ def check_kernels(dev, results):
                     else:
                         other_shapes.append({"name": name, **shape, **timing})
 
+                # The two passes of the window-parallel kernels timed apart
+                # at the flagship shape, one pass a launch between CUDA
+                # events (these launches are not counted).
+                if mode == "maxlog" and flagship:
+                    for nii in (True, False):
+                        p1, p2 = ck.pass_launchers(
+                            ls2, lp2, la, K, mode, scale,
+                            nii_ckpt=ain if nii else None, window=W,
+                            ext_qscale=qs)
+                        results[ck.kernel_name(nii, mode)]["pass_ms"] = {
+                            "pass1": time_launches(p1, 20),
+                            "pass2": time_launches(p2, 20)}
+
                 # The folded kernel through the identity table: the same
                 # code reading rows in order, which separates what the
                 # scattered rows cost from what the indexed address costs.
@@ -433,23 +453,27 @@ def check_kernels(dev, results):
                             "B": Bw, "ms": ms, "plain_ms": None,
                             "bound_ms": bound, "bound_by": by})
                     del wide, ain_w
-    exact_cases = check_exact_edges(dev, worst)
+    parallel_cases = check_parallel_edges(dev, worst)
     for name in worst:
         results[name]["max_abs_err"] = worst[name]
         results[name]["rounded_values_differing"] = ties[name]
-    emit("kernels", tolerance=TOLERANCE, cases=cases, exact_cases=exact_cases,
+    emit("kernels", tolerance=TOLERANCE, cases=cases,
+         parallel_cases=parallel_cases,
          kernels={k: {kk: results[k].get(kk) for kk in (
              "max_abs_err", "rounded_values_differing", "ms", "plain_ms",
-             "bound_ms", "bound_by")} for k in worst},
+             "bound_ms", "bound_by", "pass_ms")} for k in worst},
          other_shapes=other_shapes)
 
 
-def check_exact_edges(dev, worst):
-    """The window-parallel exact kernels at the shapes their blocks and
-    passes single out, every mode and stream pair, difference 0: B not a
-    multiple of the 32-codeword block (70, and 1000 at the flagship shape),
-    one window (K=40 in W=48, three segments of 16; in W=64, one segment: no
-    first pass), K_real below the trellis' K (masked rows)."""
+def check_parallel_edges(dev, worst):
+    """The window-parallel kernels, exact and NII, at the shapes their
+    blocks and passes single out, every mode and stream pair, difference 0
+    (NII: le and the window starts aout[1:]): B not a multiple of the
+    4-codeword warps of pass 1 (70, 37, 45: the register path) or of the
+    32-codeword blocks (and 1000 at the flagship shape), one window (K=40 in
+    W=48, three segments of 16; in W=64, one segment: no first pass), K_real
+    below the trellis' K (masked rows).  NII takes real window starts from a
+    cold call."""
     from turbotpu_torch.harness.bench import make_decode_inputs
     from turbotpu_torch.siso import cuda_kernel as ck
     types = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -459,7 +483,6 @@ def check_exact_edges(dev, worst):
     out = []
     for mode in MODES:
         scale = 0.75 if mode == "maxlog" else 1.0
-        name = ck.kernel_name(False, mode)
         shapes = [(shape, pair) for shape in small
                   for pair in (("bfloat16", "int8"), ("bfloat16", "bfloat16"),
                                ("float32", "float32"))]
@@ -470,24 +493,40 @@ def check_exact_edges(dev, worst):
             inputs = make_decode_inputs(K, B, seed=9, ebn0_db=1.0)
             ls, lp, _, _ = make_streams(inputs, K, W, types[chan], dev)
             T = ls.shape[0]
-            la, _ = ck.siso_cells(
+            la, ain = ck.siso_cells(
                 ls, lp, torch.zeros((T, B), dtype=types[ext], device=dev),
                 K_real, mode, scale, window=W, ext_qscale=qs,
                 nii_ckpt=torch.zeros((T // W, 8, B), device=dev))
-            got = ck.siso_cells(ls, lp, la, K_real, mode, scale, window=W,
-                                ext_qscale=qs)
-            want = ck.siso_exact_plain(ls, lp, la, K_real, W, scale, qs, mode)
-            err = float((got.float() - want.float()).abs().max())
-            if err != 0.0 or not torch.equal(got, want):
-                raise AssertionError(
-                    f"{name} differs from its plain version: {err} at K={K} "
-                    f"K_real={K_real} W={W} B={B} {chan}+{ext}")
-            worst[name] = max(worst[name], err)
-            out.append({"name": name, "K": K, "K_real": K_real, "W": W,
-                        "B": B, "n_win": T // W,
-                        "segments": T // ck.exact_segment(T),
-                        "chan": chan, "ext": ext,
-                        "max_abs_err": err})
+            for nii in (False, True):
+                name = ck.kernel_name(nii, mode)
+                if nii:
+                    got, aout = ck.siso_cells(ls, lp, la, K_real, mode, scale,
+                                              window=W, ext_qscale=qs,
+                                              nii_ckpt=ain)
+                    want, aout_p = ck.siso_nii_plain(ls, lp, la, ain, K_real,
+                                                     W, scale, qs, mode)
+                    e_ck = (float((aout[1:] - aout_p[1:]).abs().max())
+                            if T > W else 0.0)
+                    same = torch.equal(aout[1:], aout_p[1:])
+                    seg = ck.exact_segment(W)
+                else:
+                    got = ck.siso_cells(ls, lp, la, K_real, mode, scale,
+                                        window=W, ext_qscale=qs)
+                    want = ck.siso_exact_plain(ls, lp, la, K_real, W, scale,
+                                               qs, mode)
+                    e_ck, same, seg = 0.0, True, ck.exact_segment(T)
+                err = float((got.float() - want.float()).abs().max())
+                if err != 0.0 or e_ck != 0.0 or not (
+                        same and torch.equal(got, want)):
+                    raise AssertionError(
+                        f"{name} differs from its plain version: le {err}, "
+                        f"window starts {e_ck} at K={K} K_real={K_real} "
+                        f"W={W} B={B} {chan}+{ext}")
+                worst[name] = max(worst[name], err, e_ck)
+                out.append({"name": name, "K": K, "K_real": K_real, "W": W,
+                            "B": B, "n_win": T // W, "segments": T // seg,
+                            "staged": B % 4 == 0, "chan": chan, "ext": ext,
+                            "max_abs_err": max(err, e_ck)})
     return out
 
 
@@ -1152,7 +1191,7 @@ def check_seq(dev, card, results):
         ms = {k: [] for k in decs}
         for k in ("seq2", "seq2_dma", "monolithic", "monolithic", "seq2_dma",
                   "seq2"):
-            ms[k].append(time_launches(lambda: decs[k](*inputs), 3))
+            ms[k].append(time_launches(lambda: decs[k](*inputs), 5))
         rec["ms_per_batch"]["nii" if nii else "exact"] = ms
     mono = turbo_decode(*inputs, c5.c5_config(), device=dev)
     hard = outs[False][0]
@@ -1231,7 +1270,7 @@ def check_seq(dev, card, results):
              "edge_ring_shift_ms": time_launches(
                  lambda: mesh.seq_ring(edges, edges), 20),
              # the K6 path: payloads copied into the send buffers, one
-             # launch, the error flag read back
+             # launch (the error flag is read once per decode, not here)
              "edge_ring_xch_ms": time_launches(
                  lambda: boundary_exchange_dma(payload, payload, mesh), 20),
              "syndrome_reduce_ms": time_launches(syndrome, 20)}
@@ -1246,8 +1285,10 @@ def check_seq(dev, card, results):
 
 def check_dist(dev, card, results):
     """Phase `dist`: K6 against its plain version and two torch.roll calls
-    at C5's edge shape over 100 exchanges, the flags after them; the
-    data-parallel decode and counts through NCCL with a world of one."""
+    at C5's edge shape over 100 exchanges, the flags after them; K6 and the
+    two torch.roll calls timed back to back and as CUDA graphs; a set error
+    flag raising at the end of a sequence decode; the data-parallel decode
+    and counts through NCCL with a world of one."""
     import os
     import tempfile
 
@@ -1256,6 +1297,8 @@ def check_dist(dev, card, results):
     from turbotpu_torch.dist.data_parallel import (count_errors_sharded,
                                                    decode_batch_sharded)
     from turbotpu_torch.dist.mesh import make_mesh
+    from turbotpu_torch.dist.seq_parallel import decode_seq_sharded
+    from turbotpu_torch.experiments.gather_inkernel import graph_ms
     from turbotpu_torch.harness.bench import flagship_config, make_decode_inputs
 
     rec = {"card": card}
@@ -1284,35 +1327,85 @@ def check_dist(dev, card, results):
                             float((a - c).abs().max()))
         ring = dma.ring_buffers(mesh, n, shape, torch.float32)
         flags = ring.flags.tolist()
-        if flags[:n] != [2 * n_ep] * n or flags[-1] != 0:
+        # ready, arrivals, the error flag, every CTA's exchange count
+        if (flags[:n] != [2 * n_ep] * n
+                or flags[n:2 * n] != [2 * ring.ctas * n_ep] * n
+                or flags[2 * n] != 0
+                or flags[2 * n + 1:] != [n_ep] * (n * ring.ctas)):
             raise AssertionError(f"ring_xch flags after {n_ep} exchanges on "
                                  f"{data}x{n_seq}: {flags}")
+        dma.check(mesh)
         rec[f"flags_{data}x{n_seq}"] = {"exchanges": n_ep, "ready": flags[:n],
-                                        "arrived": flags[n:2 * n]}
+                                        "arrived": flags[n:2 * n],
+                                        "ctas_per_shard": ring.ctas}
     if worst != 0.0:
         raise AssertionError(f"ring_xch differs from its plain version: "
                              f"{worst}")
 
-    # timed at C5's shape (one data row, seq=2): the launch alone, the plain
-    # rotation, and two torch.roll calls on the stacked payloads
+    # timed at C5's shape (one data row, seq=2), in turns: the launch alone
+    # and two torch.roll calls on the stacked payloads, back to back (what a
+    # caller waits, the host's enqueue included) and as a CUDA graph of 20
+    # calls (the device's time alone; the graph's replays make real
+    # exchanges, each CTA counting its own on the device); the plain
+    # rotation on the host.
     mesh = make_mesh(1, 2, device=dev)
     ring = dma.ring_buffers(mesh, 2, shape, torch.float32)
-    ms = time_launches(lambda: dma.launch(ring, 2), 100)
-    dma.check(ring)
     stacked = torch.randn((2,) + shape, device=dev)
+    kernel = lambda: dma.launch(ring, 2)
+    library = lambda: (torch.roll(stacked, 1, 0), torch.roll(stacked, -1, 0))
+    turns = {"kernel": [], "library": [], "kernel_device": [],
+             "library_device": []}
+    for who, fn in (("kernel", kernel), ("library", library),
+                    ("library", library), ("kernel", kernel)):
+        turns[who].append(time_launches(fn, 100))
+        turns[f"{who}_device"].append(
+            graph_ms(fn, 20, counts=dma.LAUNCHES))
+    ring_flags = ring.flags.tolist()
+    made = ring_flags[2 * 2 + 1]
+    if ring_flags[:2] != [2 * made] * 2 or ring_flags[2 * 2] != 0:
+        raise AssertionError(f"ring_xch flags after the timing: {ring_flags}")
+    dma.check(mesh)
     fwd, bwd = list(stacked), list(-stacked)
     t0 = time.perf_counter()
     for _ in range(100):
         dma.boundary_exchange_plain(fwd, bwd, 2)
     plain_ms = (time.perf_counter() - t0) * 10.0
-    lib_ms = time_launches(lambda: (torch.roll(stacked, 1, 0),
-                                    torch.roll(stacked, -1, 0)), 100)
+    mean = lambda v: sum(v) / len(v)
     nbytes = 2 * 2 * 2 * stacked[0].numel() * 4   # 2 shards x 2 dirs, r + w
     results["ring_xch"].update(
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        max_abs_err=worst, ms=mean(turns["kernel"]), plain_ms=plain_ms,
+        library_ms=mean(turns["library"]),
+        device_ms=mean(turns["kernel_device"]),
+        library_device_ms=mean(turns["library_device"]),
         bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
         shape={"data": 1, "seq": 2, "payload": list(shape),
-               "dtype": "float32"})
+               "dtype": "float32", "ctas_per_shard": ring.ctas})
+    rec["ring_xch_turns_ms"] = turns
+    rec["ring_xch_exchanges_timed"] = made
+
+    # a fault in an exchange is reported at the end of the decode that made
+    # it: the error flag set by hand before a lean seq=2 decode with K6 (a
+    # fresh mesh), which must run all its exchanges and then raise
+    mesh = make_mesh(1, 2, device=dev)
+    small = tuple(x.to(dev) for x in make_decode_inputs(168, 64, seed=8,
+                                                        ebn0_db=1.5))
+    cfg = flagship_config(K=168, window=0, nii=False, boundary_xch="dma")
+    dma.ring_buffers(mesh, 2, (2, 8, 64), torch.float32).error.fill_(2)
+    dma.LAUNCHES["ring_xch"] = 0
+    try:
+        decode_seq_sharded(mesh, cfg)(*small)
+    except RuntimeError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("a set ring_xch error flag did not raise at the "
+                             "end of the sequence decode")
+    torch.cuda.synchronize()
+    if dma.LAUNCHES["ring_xch"] != cfg.n_iters or "never landed" not in raised:
+        raise AssertionError(f"the error flag raised after "
+                             f"{dma.LAUNCHES['ring_xch']} of {cfg.n_iters} "
+                             f"exchanges: {raised}")
+    rec["error_flag_raises_at_decode_end"] = {
+        "exchanges_before": dma.LAUNCHES["ring_xch"], "message": raised}
 
     # data_parallel through NCCL with a world of one: a FileStore in a
     # temporary directory, no network
@@ -1582,11 +1675,15 @@ def main(argv) -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # where measured: device time as a CUDA graph (K6, K7), the two passes
+    # of the window-parallel kernels timed apart (K1, K2)
+    extra = ("device_ms", "library_device_ms", "pass_ms")
     for r in results.values():
         if r.get("launches", 0) < 1:
             raise AssertionError(f"the main paths never launched {r['name']}")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in results.values()]}), flush=True)
+    print(json.dumps({"kernels": [
+        {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
+        for r in results.values()]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

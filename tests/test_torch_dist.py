@@ -75,6 +75,51 @@ def test_k6_iterated_in_a_loop():
         dma.boundary_exchange_dma(f[:2], b[:2], mesh)
 
 
+def test_k6_error_flag_is_read_by_check():
+    """An exchange reads nothing back: a timeout sets the ring's sticky
+    error flag, and `dma.check` reads the flags of every ring of the mesh
+    and raises with the fault's message.  On the CPU the buffers carry the
+    flags but no per-CTA counts."""
+    mesh = make_mesh(1, 2, device="cpu")
+    dma.check(mesh)                       # no ring yet: nothing to read
+    ring = dma.ring_buffers(mesh, 2, (2, 8, 16), torch.float32)
+    assert ring.ctas == 0 and ring.flags.shape == (2 * 2 + 1,)
+    dma.check(mesh)
+    for code, message in ((1, "never signalled the barrier"),
+                          (2, "incoming payload never landed")):
+        ring.flags.zero_()
+        ring.error.fill_(code)
+        with pytest.raises(RuntimeError, match=message):
+            dma.check(mesh)
+
+
+@pytest.mark.parametrize("nii", [False, True])
+def test_seq_decode_checks_k6_once(monkeypatch, nii):
+    """The sequence-sharded decode with boundary_xch='dma' exchanges once per
+    iteration and reads the error flags once, after its iterations; with the
+    ring shift it reads none."""
+    calls = {"check": 0, "exchange": 0}
+    check, exchange = dma.check, dma.boundary_exchange_dma
+
+    def counted(name, fn):
+        def wrapped(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return wrapped
+    monkeypatch.setattr(dma, "check", counted("check", check))
+    monkeypatch.setattr(dma, "boundary_exchange_dma",
+                        counted("exchange", exchange))
+    inputs = make_decode_inputs(168, 8, seed=4, ebn0_db=1.5)
+    mesh = make_mesh(1, 2, device="cpu")
+    base = dict(K=168, n_iters=3, mode="maxlog", siso="cuda", nii=nii,
+                window=16 if nii else 0)
+    decode_seq_sharded(mesh, DecoderConfig(**base, boundary_xch="dma"))(
+        *inputs)
+    assert calls == {"check": 1, "exchange": 3}
+    decode_seq_sharded(mesh, DecoderConfig(**base))(*inputs)
+    assert calls == {"check": 1, "exchange": 3}
+
+
 @pytest.mark.parametrize("nii", [False, True])
 def test_seq_decode_dma_equals_ppermute(nii):
     """boundary_xch='dma' through the sharded decode (payload stacking, the
@@ -197,7 +242,8 @@ def test_process_mesh_equals_local_mesh(tmp_path, monkeypatch):
 @pytest.mark.cuda
 def test_k6_kernel_matches_plain_on_card():
     """Needs a card: K6 against the rotation over 20 exchanges on a 2x4
-    local mesh, and the ready flags at 2 x epochs after them."""
+    local mesh, and the flags after them: ready at 2 x 20, arrivals at
+    2 x ctas x 20, no error, every CTA's count at 20."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
     mesh = make_mesh(2, 4, device="cuda")
@@ -209,4 +255,8 @@ def test_k6_kernel_matches_plain_on_card():
         pf, pb = dma.boundary_exchange_plain(f, b, n_seq)
         assert all(torch.equal(x, y) for x, y in zip(rf + rb, pf + pb))
     ring = dma.ring_buffers(mesh, 8, (2, 8, 100), torch.float32)
-    assert ring.flags[:8].tolist() == [2 * 20] * 8
+    flags = ring.flags.tolist()
+    assert flags[:8] == [2 * 20] * 8
+    assert flags[8:16] == [2 * ring.ctas * 20] * 8 and flags[16] == 0
+    assert flags[17:] == [20] * (8 * ring.ctas)
+    dma.check(mesh)

@@ -198,6 +198,36 @@ def test_e0_identities(mode):
     assert torch.equal(le_n, le_m) and torch.equal(tbl[1:], tbl_m[1:])
 
 
+@pytest.mark.parametrize("nii", [False, True])
+def test_boundary_edges_written_into_given_tensors(nii):
+    """edges_out: the boundary forms write their outgoing edges into the
+    tensors given (the sequence decoder passes views of K6's send buffers)
+    and return those, with the values of the call without it."""
+    K, W, B = 168, 32, 5
+    rng = np.random.default_rng(6)
+    T = -(-(K + 3) // W) * W
+    ls, lp, la = (torch.from_numpy(rng.normal(size=(T, B)).astype(np.float32))
+                  for _ in range(3))
+    a_in, b_in = (torch.from_numpy(rng.normal(size=(8, B)).astype(np.float32))
+                  for _ in range(2))
+    kw = (dict(nii_boundaries=(torch.zeros((T // W, 8, B)), a_in, b_in))
+          if nii else dict(boundaries=(a_in, b_in)))
+    want = ck.siso_cells(ls, lp, la, K, "maxlog", window=W, row_offset=8,
+                         **kw)
+    send = torch.zeros((2, 2, 8, B))
+    out = (send[0, 1], send[1, 1])
+    got = ck.siso_cells(ls, lp, la, K, "maxlog", window=W, row_offset=8,
+                        edges_out=out, **kw)
+    assert got[-2] is out[0] and got[-1] is out[1]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(send[:, 0], torch.zeros((2, 8, B)))
+    with pytest.raises(ValueError, match="edges_out needs"):
+        ck.siso_cells(ls, lp, la, K, "maxlog", window=W, edges_out=out)
+    with pytest.raises(ValueError, match="edges_out must"):
+        ck.siso_cells(ls, lp, la, K, "maxlog", window=W,
+                      edges_out=(out[0], torch.zeros((8, B + 1))), **kw)
+
+
 def test_wrapper_checks_the_boundary_operands():
     T, B, K, W = 64, 4, 40, 32
     z = torch.zeros((T, B))

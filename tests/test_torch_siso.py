@@ -216,7 +216,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 @pytest.mark.parametrize("chan,ext", [("bfloat16", "int8"),
                                       ("float32", "float32")])
 def test_kernels_match_plain_on_card(chan, ext):
-    """Needs a card: the CUDA kernels against their plain versions, equal."""
+    """Needs a card: the CUDA kernels against their plain versions, equal
+    (le and the NII window starts)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
     K, W, B, scale = 168, 32, 70, 0.75
@@ -237,23 +238,35 @@ def test_kernels_match_plain_on_card(chan, ext):
     le_p, aout_p = ck.siso_nii_plain(ls, lp, la, ain, K, W, scale, qs)
     assert torch.equal(le, le_p) and torch.equal(aout[1:], aout_p[1:])
     assert torch.equal(le_x, ck.siso_exact_plain(ls, lp, la, K, W, scale, qs))
-    # the window-parallel exact kernels, every mode: B = 70 is not a
-    # multiple of their 32-codeword blocks; K=40 in one window (of 48: three
-    # segments; of 64: one segment, no first pass); K_real = 150 masks rows
-    # of the K=168 trellis
+    # the window-parallel exact and NII kernels, every mode: B = 70 is not
+    # a multiple of their 4-codeword warps (pass 1) or 32-codeword blocks;
+    # K=40 in one window (of 48: three segments; of 64: one segment, no
+    # first pass); K_real = 150 masks rows of the K=168 trellis
     for mode in ("maxlog", "linlog", "logmap"):
-        name = ck.kernel_name(False, mode)
         for K_, W_, K_real in ((168, 32, 168), (40, 48, 40), (40, 64, 40),
                                (168, 32, 150)):
             s_np, p_np = _streams(K_, B, W_, seed=12)
             ls_, lp_ = (torch.from_numpy(x).to(dev, TORCH_DT[chan])
                         for x in (s_np, p_np))
-            la_ = ck.siso_cells(ls_, lp_, torch.zeros(
+            T_ = ls_.shape[0]
+            la_, ain_ = ck.siso_cells(ls_, lp_, torch.zeros(
                 ls_.shape, dtype=TORCH_DT[ext], device=dev), K_real, mode,
-                scale, window=W_, ext_qscale=qs)
+                scale, window=W_, ext_qscale=qs,
+                nii_ckpt=torch.zeros((T_ // W_, 8, B), device=dev))
+            name = ck.kernel_name(False, mode)
             n = ck.LAUNCHES[name]
             got = ck.siso_cells(ls_, lp_, la_, K_real, mode, scale,
                                 window=W_, ext_qscale=qs)
             assert ck.LAUNCHES[name] == n + 1
             assert torch.equal(got, ck.siso_exact_plain(
                 ls_, lp_, la_, K_real, W_, scale, qs, mode)), (mode, K_, W_)
+            name = ck.kernel_name(True, mode)
+            n = ck.LAUNCHES[name]
+            got, aout_ = ck.siso_cells(ls_, lp_, la_, K_real, mode, scale,
+                                       window=W_, ext_qscale=qs,
+                                       nii_ckpt=ain_)
+            assert ck.LAUNCHES[name] == n + 1
+            want, aout_p = ck.siso_nii_plain(ls_, lp_, la_, ain_, K_real, W_,
+                                             scale, qs, mode)
+            assert torch.equal(got, want), (mode, K_, W_)
+            assert torch.equal(aout_[1:], aout_p[1:]), (mode, K_, W_)

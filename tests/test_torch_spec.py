@@ -105,3 +105,20 @@ def test_rate_match_maps_equal(K):
     llr = rng.normal(size=4 * K)
     for g, w in zip(trm.de_rate_match(llr, K, 2), jrm.de_rate_match(llr, K, 2)):
         np.testing.assert_array_equal(g, w)
+
+
+def test_public_names_equal_the_reference():
+    """Every name the JAX package exports is exported by the port, and is
+    the port's own (no JAX object behind it)."""
+    import turbotpu
+    import turbotpu_torch
+    assert turbotpu_torch.__all__ == turbotpu.__all__
+    ns = {}
+    exec("from turbotpu_torch import *", ns)
+    for name in turbotpu.__all__:
+        obj = getattr(turbotpu_torch, name)
+        assert ns[name] is obj
+        if name != "__version__":
+            assert obj.__module__.startswith("turbotpu_torch."), name
+    with pytest.raises(AttributeError):
+        turbotpu_torch.no_such_name

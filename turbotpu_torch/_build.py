@@ -14,7 +14,9 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -92,3 +94,32 @@ def load(name: str, defines: tuple[str, ...] = (),
         _loaded[target] = ctypes.CDLL(
             str(build((target,), extra_flags)[target]))
     return _loaded[target]
+
+
+class PackedEntry:
+    """A kernel's C entry that takes one pointer to a block of int64
+    arguments, resolved from its library at the first call.  A typed ctypes
+    call converts every argument, which costs several microseconds a call on
+    the host; one pointer costs below one.  Each thread packs into a block of
+    its own (ctypes releases the GIL during the call).  Calling it returns
+    the entry's int."""
+
+    def __init__(self, target: Target, symbol: str, n_args: int):
+        self._target, self._symbol = target, symbol
+        self._args = struct.Struct(f"{n_args}q")
+        self._fn = None
+        self._blocks = threading.local()
+
+    def __call__(self, *args: int) -> int:
+        if self._fn is None:
+            fn = getattr(load(*self._target), self._symbol)
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        blk = getattr(self._blocks, "blk", None)
+        if blk is None:
+            buf = bytearray(self._args.size)
+            arr = (ctypes.c_char * self._args.size).from_buffer(buf)
+            blk = self._blocks.blk = (buf, ctypes.c_void_p(
+                ctypes.addressof(arr)), arr)
+        self._args.pack_into(blk[0], 0, *args)
+        return self._fn(blk[1])

@@ -10,11 +10,14 @@
 //                      alpha and beta at its edges.
 // Both emit the extrinsic
 //   Le = max*(u=0 edges) - max*(u=1 edges)
-// from alpha before each step and beta after it.  The NII kernel walks the
-// windows backward in one thread per codeword: recompute and store alpha
-// through the window, run beta through it (continuous across windows, exact
-// from e0 at the padded trellis end).  The exact contract runs window-
-// parallel (exact_pass1/exact_pass2 below, with their own note).
+// from alpha before each step and beta after it.  Both run window-parallel
+// on the same two passes (nii_pass1/exact_pass1, then exact_pass2, with their
+// own note below): the contracts differ only in where alpha comes from.  Beta
+// is exact in both: it runs continuously backward from e0 at the padded
+// trellis end through every window.
+// The serial schedule (siso_kernel: one thread per codeword walks the windows
+// backward, recomputing alpha through each into a scratch and running beta
+// down it) remains for two forms, each a library of its own:
 // K4, the boundary contracts of the same function (boundary=True, with and
 // without nii, with_offset; consumed by the sequence-sharded decoder): the
 // trellis is one chunk of a longer one, so the recursions start from edge
@@ -29,18 +32,18 @@
 // length and off the chunk's first row.  A compile-time BND of the kernel,
 // built as a library of its own (-DSISO_BND=1), so a decode without the
 // sequence path never compiles it; with a0 = bT = edge_in = e0 and off = 0
-// the boundary forms are the exact and NII kernels bit for bit.  They add
+// the boundary forms equal the exact and NII kernels bit for bit.  They add
 // four edge pointers and an offset and no work per step, so they are bound
-// as the others (below), over the chunk's C steps: at the sequence path's
-// batch (4096 codewords = 128 warps, about one per SM) by one warp's
-// dependent chain, as at 1024.
-// A third form of the NII contract folds the extrinsic interleave into the
-// kernel (the reference's fold_gather=True call, pallas_call at :570 of the
-// same file): the a-priori row of step t is read from row idx[t] of the
+// as the serial kernel is (below), over the chunk's C steps: at the sequence
+// path's batch (4096 codewords = 128 warps, about one per SM) by one warp's
+// dependent chain.
+// K5, a third form of the NII contract, folds the extrinsic interleave into
+// the kernel (the reference's fold_gather=True call, pallas_call at :570 of
+// the same file): the a-priori row of step t is read from row idx[t] of the
 // OTHER SISO's raw output, through a (T,) int32 table shared by the batch,
 // so the decoder runs no gather between the two half-iterations.  Everything
-// after the read is the NII kernel's code, so its outputs equal that kernel's
-// on a materialised gather bit for bit.
+// after the read is the serial NII code, so its outputs equal the NII
+// kernel's on a materialised gather bit for bit (-DSISO_FOLD=1).
 // The mode is a compile-time parameter:
 //   max-log  max*(a, b) = max(a, b); the parity add is factored out of the
 //            extrinsic's reduction (exact there: rounding is monotone);
@@ -62,21 +65,23 @@
 // A first version that copied the table to shared memory once per block
 // measured about 3% slower than this plain form, at 1024 and at 16384
 // codewords.
-// NII checkpoints are (n_win, 8, B) fp32, its alpha window scratch (W, 8, B)
-// fp32.  One thread decodes one codeword and keeps the 8 state metrics in
-// registers; the trellis permutation is register renaming in the unrolled
-// step.  The kernel allocates nothing: the wrapper passes the scratch.
+// Window tables (ain, aout) are (n_win, 8, B) fp32.  The serial kernel's
+// alpha window scratch is (W, 8, B) fp32.  One thread decodes one codeword
+// and keeps the 8 state metrics in registers; the trellis permutation is
+// register renaming in the unrolled step.  No kernel allocates: the wrapper
+// passes the scratch.
 //
-// Bound: at the decoder's batch (1024 codewords = 32 warps) the card is
-// mostly empty, and the kernel is bound by latency, not by bytes (about 6 B
-// per step and codeword) or by fp32 issue: one warp's dependent add/max
-// chain over 2 x KTp steps (NII; 3 x KTp for the serial exact schedule that
-// the boundary form keeps), plus every load it has to wait for.  What the
-// design does about it: blocks are one warp wide so the codewords spread
-// over as many SMs as possible, and streams and stored alphas are fetched a
-// block of 8 steps at a time, one block ahead of the arithmetic, into a
-// second set of registers (the two sets swap roles in a loop unrolled by
-// two).  Splitting a codeword's 8 states over 8 lanes is the next step.
+// Bound of the serial kernel (K4, K5): at the decoder's batch (1024
+// codewords = 32 warps) the card is mostly empty, and the kernel is bound by
+// latency, not by bytes (about 6 B per step and codeword) or by fp32 issue:
+// one warp's dependent add/max chain over 2 x KTp steps (NII; 3 x KTp for the
+// exact boundary form), plus every load it has to wait for.  What the design
+// does about it: blocks are one warp wide so the codewords spread over as
+// many SMs as possible, and streams and stored alphas are fetched a block of
+// 8 steps at a time, one block ahead of the arithmetic, into a second set of
+// registers (the two sets swap roles in a loop unrolled by two).  That
+// prefetch is waited on in full (see cp_async below); the window-parallel
+// passes are the way out, and K4 and K5 are next to take them.
 //
 // The corrections multiply the arithmetic per step (linlog about 2.5x the
 // instructions of max-log, log-MAP two libm calls per max*) on the same
@@ -472,46 +477,61 @@ __global__ void siso_kernel(
   if (BND) store_edge(e.b_out, beta, B, b);  // beta at the chunk start
 }
 
-// ---- the exact contract, window-parallel (K2 and K3's exact rows) --------
+// ---- the window-parallel passes (K2, K1 and K3's rows of both) ----------
 //
-// The serial schedule walks the trellis three times in one thread per
-// codeword.  The exact contract's outputs depend only on alpha and beta at
-// each step, and both are plain recursions from e0 with a renorm after every
-// 8-step block (blocks aligned at multiples of 8 from t = 0).  So the
-// trellis is cut into windows of W steps (W a multiple of 8; the wrapper
-// passes segments of at most 64 steps: any multiple of 8 gives the same
-// values, since every window edge is a block edge), and:
-//   pass 1: alpha runs forward over windows 0..n_win-2 and writes alpha at
-//           each window start (ack[w], w >= 1); at the same time beta runs
-//           backward from e0 at T down to row W and writes beta at each
-//           window end (bck[w], the beta entering window w from above,
-//           w <= n_win-2).  Each walk is T - W dependent steps.  A codeword's
-//           8 states sit on 8 lanes: each lane does its state's step on two
-//           metrics shuffled in from the lanes of the predecessor (or
-//           successor) states, which cuts the dependent chain of a step to a
-//           shuffle, an add and a max* and the instructions per lane to a
-//           few (one thread per codeword, its rows staged the same way,
-//           measured slower in every mode, max-log included).  The rows of
-//           each 8-step block are staged PASS1_DEPTH - 1 blocks ahead
-//           (cp.async into a ring of tiles in shared memory; register loads
-//           where B % 4 != 0); lane s forms row s's A and P, and the 8
-//           lanes exchange them.
-//   pass 2: one thread per (window, codeword) decodes its window alone:
-//           alpha forward from ack[w] (e0 for window 0), keeping alpha at
-//           each 8-step block start in shared memory (W / 8 x 8 fp32 a
-//           thread); then block by block backward, alpha recomputed over the
-//           block from its sub-checkpoint into registers, and beta from
-//           bck[w] (e0 for the last window) steps down the block emitting Le.
+// The serial schedule walks the trellis three times (exact) or twice (NII)
+// in one thread per codeword.  Both contracts' outputs depend only on alpha
+// and beta at each step.  Beta is, in both, a plain recursion from e0 at T
+// with a renorm after every 8-step block (blocks aligned at multiples of 8
+// from t = 0).  Alpha is one too in the exact contract, from e0 at t = 0; in
+// the NII contract it restarts at every window start w*W from ain[w] (e0 for
+// window 0), renormalised every 8 steps from that start.  So the trellis is
+// cut into segments of seg steps (a power of two up to 64, a multiple of 8;
+// for NII one that divides the window W, so every segment edge is an 8-step
+// renorm edge of the window walk too; for exact any multiple of 8 gives the
+// same values, since every segment edge is a block edge), and:
+//   pass 1, beta: beta runs backward from e0 at T down to row seg and writes
+//           beta at each segment end (bck[j], the beta entering segment j
+//           from above, j <= n_seg-2), T - seg dependent steps.  A
+//           codeword's 8 states sit on 8 lanes: each lane does its state's
+//           step on two metrics shuffled in from the lanes of the successor
+//           states, which cuts the dependent chain of a step to a shuffle,
+//           an add and a max* and the instructions per lane to a few (one
+//           thread per codeword, its rows staged the same way, measured
+//           slower in every mode, max-log included).  The rows of each
+//           8-step block are staged PASS1_DEPTH - 1 blocks ahead (cp.async
+//           into a ring of tiles in shared memory; register loads where
+//           B % 4 != 0); lane s forms row s's A and P, and the 8 lanes
+//           exchange them.
+//   pass 1, alpha (exact_pass1, other blockIdx.y): the same walk forward
+//           from e0 over segments 0..n_seg-2, writing alpha at each segment
+//           start (ack[j], j >= 1).
+//   pass 1, alpha (nii_pass1, blocks after the beta walk's, one launch): one
+//           thread per (window, codeword) walks alpha over its window's W
+//           steps from ain[w], writes alpha at each segment start inside the
+//           window (ack[j]; at the window start that is ain[w] itself) and
+//           the window's end alpha to aout[w+1].  These are n_win x B walks
+//           of W steps beside one walk of T - seg steps per codeword, so the
+//           beta walk sets the pass's time.
+//   pass 2 (exact_pass2, both contracts): one thread per (segment,
+//           codeword) decodes its segment alone: alpha forward from ack[j]
+//           (e0 for segment 0), keeping alpha at each 8-step block start in
+//           shared memory (seg / 8 x 8 fp32 a thread); then block by block
+//           backward, alpha recomputed over the block from its
+//           sub-checkpoint into registers, and beta from bck[j] (e0 for the
+//           last segment) steps down the block emitting Le.
 // Every value is produced by the same step functions on the same operands in
 // the same order as the serial schedule (the renorm's max over 8 lanes is a
-// tree, which is exact for fmaxf), so Le is equal bit for bit.  The critical
-// path is T - W + 3W steps instead of 3T, the window alphas never leave the
-// SM, and at the decoder's batch the second pass has n_win x B independent
-// threads (100 x 1024 at the flagship shape with segments of 64).
+// tree, which is exact for fmaxf), so Le and aout are equal bit for bit.
+// The critical path is T - seg + 3 seg steps (one warp's beta walk, then one
+// segment) instead of 3T (exact) or 2T (NII); the segment alphas never leave
+// the SM, and at the decoder's batch pass 2 has n_seg x B independent threads
+// (100 x 1024 at the flagship shape).
 // Bound: as the serial kernel, latency and not bytes or issue at the
-// decoder's batch; the first pass's walk, a chain of a shuffle, an add and a
+// decoder's batch; pass 1's beta walk, a chain of a shuffle, an add and a
 // max* per step and three shuffle-max levels per renorm, is the critical
-// path.
+// path, and it is the same walk in both contracts: the NII contract saves
+// the forward walk's instructions, not its time.
 constexpr int EXACT_THREADS = 32;  // pass 1 and pass 2 blocks: one warp
 constexpr int PASS1_CW = EXACT_THREADS / 8;  // pass 1: codewords per warp
 constexpr int PASS1_DEPTH = 8;     // row blocks in flight in pass 1
@@ -704,6 +724,68 @@ __global__ void exact_pass1(const TC* __restrict__ ls,
                               tiles);
 }
 
+// The NII contract's alpha walk of window w for codeword st.b (pass 1):
+// from ain[w] (e0 for window 0), renormalised after every 8-step block of the
+// window as the serial kernel does; alpha at each segment start inside the
+// window goes to ack (segment 0's slot is never read), the window's end to
+// aout[w + 1] (the last window's end goes nowhere).
+template <int MODE, typename TC, typename TE>
+__device__ __forceinline__ void window_alpha(const Streams<TC, TE, false>& st,
+                                             const float* __restrict__ ain,
+                                             float* __restrict__ aout,
+                                             float* __restrict__ ack, int w,
+                                             int n_win, int W, int seg) {
+  const int64_t B = st.B, b = st.b;
+  const int base = w * W;
+  float alpha[8];
+  if (w == 0) init_e0(alpha);
+  else load_edge(alpha, ain + (int64_t)w * 8 * B, B, b);
+  Rows<TC, TE> r0, r1;
+  st.fetch(base, r0);
+  for (int tw = 0; tw < W; tw += 2 * UNROLL) {
+    if (tw % seg == 0 && base + tw > 0)
+      store_edge(ack + (int64_t)((base + tw) / seg) * 8 * B, alpha, B, b);
+    alpha_block<MODE>(st, base + tw, tw + UNROLL < W, r0, r1, alpha, nullptr,
+                      0);
+    const int t1 = tw + UNROLL;
+    if (t1 == W) break;
+    if (t1 % seg == 0)
+      store_edge(ack + (int64_t)((base + t1) / seg) * 8 * B, alpha, B, b);
+    alpha_block<MODE>(st, base + t1, t1 + UNROLL < W, r1, r0, alpha, nullptr,
+                      0);
+  }
+  if (w + 1 < n_win) store_edge(aout + (int64_t)(w + 1) * 8 * B, alpha, B, b);
+}
+
+// K1's pass 1, one launch: blocks [0, n_beta) walk beta over the segments as
+// exact_pass1's beta slice does (PASS1_CW codewords a warp, 8 lanes each);
+// the n_win x ceil(B / 32) blocks after them walk the window alphas, one
+// thread per (window, codeword).  The beta blocks come first, so the long
+// walk starts first and the short ones fill the SMs beside it.
+template <int MODE, bool STAGED, typename TC, typename TE>
+__global__ void nii_pass1(const TC* __restrict__ ls, const TC* __restrict__ lp,
+                          const TE* __restrict__ la,
+                          const float* __restrict__ ain,
+                          float* __restrict__ aout, float* __restrict__ ack,
+                          float* __restrict__ bck, int B_, int K, int n_win,
+                          int W, int seg, int n_beta, float eff) {
+  __shared__ __align__(16) Tile<TC, TE> tiles[STAGED ? PASS1_DEPTH : 1];
+  const int64_t B = B_;
+  if ((int)blockIdx.x < n_beta) {
+    const int64_t bq = (int64_t)blockIdx.x * PASS1_CW + (threadIdx.x >> 3);
+    const bool live = bq < B;
+    walk<MODE, false, STAGED>(ls, lp, la, bck, B, live ? bq : B - 1, live, K,
+                              n_win * W / seg, seg, eff, tiles);
+    return;
+  }
+  const int i = (int)blockIdx.x - n_beta;
+  const int gx = (B_ + EXACT_THREADS - 1) / EXACT_THREADS;
+  const int64_t b = (int64_t)(i % gx) * EXACT_THREADS + threadIdx.x;
+  if (b >= B) return;
+  const Streams<TC, TE, false> st{ls, lp, la, nullptr, B, b, K, eff};
+  window_alpha<MODE>(st, ain, aout, ack, i / gx, n_win, W, seg);
+}
+
 // Pass 2, one backward block at t0 (window block i): alpha over the block
 // recomputed from its sub-checkpoint (the alpha before each step, no renorm
 // inside a block), then Le and beta from the block's last row down.  The
@@ -784,38 +866,77 @@ __global__ void exact_pass2(const TC* __restrict__ ls,
   }
 }
 
-// Both passes on one stream; ck is (2, n_win, 8, B) fp32: alpha checkpoints
-// (slot 0 unused), then beta checkpoints (slot n_win - 1 unused).
+// The unit of the window-parallel passes: the largest power of two up to 64
+// that divides n (a multiple of 8).  The exact contract's wrapper passes
+// segments already (W = segment_of(T)); the NII contract cuts each window W
+// into segments of segment_of(W).
+constexpr int segment_of(int n) {
+  int seg = 64;
+  while (n % seg) seg /= 2;
+  return seg;
+}
+
+// Which of the two passes a launch runs: both (a siso_cells call), or one
+// alone, to time it (pass 2 alone then reads the checkpoints of an earlier
+// call).
+constexpr int PASS1 = 1, PASS2 = 2;
+
+// The window-parallel contracts on one stream.  ck is (2, n_seg, 8, B) fp32:
+// alpha checkpoints (slot 0 unused), then beta checkpoints (slot n_seg - 1
+// unused).  Exact: (n_win, W) are the segments, ain/aout unused.  NII:
+// (n_win, W) are the windows, ain/aout the (n_win, 8, B) window tables.
 template <typename TC, typename TE, int MODE>
-cudaError_t launch_exact(const void* ls, const void* lp, const void* la,
-                         void* le, float* ck, int B, int K, int n_win, int W,
-                         float eff, float inv_q, cudaStream_t stream) {
+cudaError_t launch_parallel(bool nii, const void* ls, const void* lp,
+                            const void* la, void* le, const float* ain,
+                            float* aout, float* ck, int B, int K, int n_win,
+                            int W, float eff, float inv_q, int passes,
+                            cudaStream_t stream) {
+  const int seg = nii ? segment_of(W) : W;
+  const int n_seg = n_win * W / seg;
   float* ack = ck;
-  float* bck = ck + (int64_t)n_win * 8 * B;
+  float* bck = ck + (int64_t)n_seg * 8 * B;
   const unsigned gx = (unsigned)((B + EXACT_THREADS - 1) / EXACT_THREADS);
-  if (n_win > 1) {
-    const dim3 g1((unsigned)((B + PASS1_CW - 1) / PASS1_CW), 2);
-    // staged: every warp's rows are whole aligned pieces of 4 codewords
-    const bool staged =
-        B % PASS1_CW == 0 &&
-        ((uintptr_t)ls | (uintptr_t)lp | (uintptr_t)la) % 16 == 0;
-    if (staged)
-      exact_pass1<MODE, true, TC, TE><<<g1, dim3(EXACT_THREADS), 0, stream>>>(
-          (const TC*)ls, (const TC*)lp, (const TE*)la, ack, bck, B, K, n_win,
-          W, eff);
-    else
-      exact_pass1<MODE, false, TC, TE><<<g1, dim3(EXACT_THREADS), 0, stream>>>(
-          (const TC*)ls, (const TC*)lp, (const TE*)la, ack, bck, B, K, n_win,
-          W, eff);
+  // staged: every warp's rows are whole aligned pieces of 4 codewords
+  const bool staged = B % PASS1_CW == 0 &&
+                      ((uintptr_t)ls | (uintptr_t)lp | (uintptr_t)la) % 16 == 0;
+  // one segment: pass 2 starts from e0 at both ends, and no window table is
+  // written (one window)
+  if ((passes & PASS1) && n_seg > 1) {
+    const TC* cls = (const TC*)ls;
+    const TC* clp = (const TC*)lp;
+    const TE* cla = (const TE*)la;
+    if (nii) {
+      const int n_beta = (B + PASS1_CW - 1) / PASS1_CW;
+      const dim3 g1((unsigned)(n_beta + n_win * (int)gx));
+      if (staged)
+        nii_pass1<MODE, true, TC, TE><<<g1, dim3(EXACT_THREADS), 0, stream>>>(
+            cls, clp, cla, ain, aout, ack, bck, B, K, n_win, W, seg, n_beta,
+            eff);
+      else
+        nii_pass1<MODE, false, TC, TE><<<g1, dim3(EXACT_THREADS), 0, stream>>>(
+            cls, clp, cla, ain, aout, ack, bck, B, K, n_win, W, seg, n_beta,
+            eff);
+    } else {
+      const dim3 g1((unsigned)((B + PASS1_CW - 1) / PASS1_CW), 2);
+      if (staged)
+        exact_pass1<MODE, true, TC, TE><<<g1, dim3(EXACT_THREADS), 0,
+                                          stream>>>(cls, clp, cla, ack, bck, B,
+                                                    K, n_seg, seg, eff);
+      else
+        exact_pass1<MODE, false, TC, TE><<<g1, dim3(EXACT_THREADS), 0,
+                                           stream>>>(cls, clp, cla, ack, bck,
+                                                     B, K, n_seg, seg, eff);
+    }
   }
-  // the wrapper's segments (at most 64 steps) take 8 KB; windows above 384
-  // steps would need the opt-in beyond 48 KB, which no caller asks for
-  const size_t smem = (size_t)W * 8 * EXACT_THREADS * sizeof(float) / UNROLL;
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  exact_pass2<MODE, TC, TE><<<dim3(gx, n_win), dim3(EXACT_THREADS), smem,
-                              stream>>>((const TC*)ls, (const TC*)lp,
-                                        (const TE*)la, (TE*)le, ack, bck, B,
-                                        K, n_win, W, eff, inv_q);
+  if (passes & PASS2) {
+    // segments of at most 64 steps take 8 KB
+    const size_t smem = (size_t)seg * 8 * EXACT_THREADS * sizeof(float) / UNROLL;
+    if (smem > 48 * 1024) return cudaErrorInvalidValue;
+    exact_pass2<MODE, TC, TE><<<dim3(gx, n_seg), dim3(EXACT_THREADS), smem,
+                                stream>>>((const TC*)ls, (const TC*)lp,
+                                          (const TE*)la, (TE*)le, ack, bck, B,
+                                          K, n_seg, seg, eff, inv_q);
+  }
   return cudaGetLastError();
 }
 
@@ -825,29 +946,28 @@ cudaError_t launch(bool nii, const void* ls, const void* lp, const void* la,
                    float* aw, float* ckpt, int B, int K, int n_win, int W,
                    float eff, float inv_q, int threads, cudaStream_t stream,
                    const Edges& e) {
+#if SISO_FOLD || SISO_BND
+  // the serial kernel: K5 (folded read, NII) or K4 (boundary forms)
+  constexpr bool FOLD = SISO_FOLD != 0, BND = SISO_BND != 0;
   const dim3 grid((B + threads - 1) / threads), block(threads);
-#if SISO_FOLD
-  if (!nii || idx == nullptr) return cudaErrorInvalidValue;
-  siso_kernel<TC, TE, true, MODE, true, false><<<grid, block, 0, stream>>>(
-      (const TC*)ls, (const TC*)lp, (const TE*)la, idx, (TE*)le, ain, aout,
-      aw, ckpt, B, K, n_win, W, eff, inv_q, e);
-#else
-  constexpr bool BND = SISO_BND != 0;
-  if (idx != nullptr) return cudaErrorInvalidValue;
-  if (nii) {
-    siso_kernel<TC, TE, true, MODE, false, BND><<<grid, block, 0, stream>>>(
+  if (FOLD && (!nii || idx == nullptr)) return cudaErrorInvalidValue;
+  if (!FOLD && idx != nullptr) return cudaErrorInvalidValue;
+  if (nii)
+    siso_kernel<TC, TE, true, MODE, FOLD, BND><<<grid, block, 0, stream>>>(
         (const TC*)ls, (const TC*)lp, (const TE*)la, idx, (TE*)le, ain, aout,
         aw, ckpt, B, K, n_win, W, eff, inv_q, e);
-  } else if constexpr (BND) {
+  else if constexpr (!FOLD)
     siso_kernel<TC, TE, false, MODE, false, BND><<<grid, block, 0, stream>>>(
         (const TC*)ls, (const TC*)lp, (const TE*)la, idx, (TE*)le, ain, aout,
         aw, ckpt, B, K, n_win, W, eff, inv_q, e);
-  } else {
-    return launch_exact<TC, TE, MODE>(ls, lp, la, le, ckpt, B, K, n_win, W,
-                                      eff, inv_q, stream);
-  }
-#endif
   return cudaGetLastError();
+#else
+  // the plain library: both contracts window-parallel, no serial kernel
+  if (idx != nullptr) return cudaErrorInvalidValue;
+  return launch_parallel<TC, TE, MODE>(nii, ls, lp, la, le, ain, aout, ckpt,
+                                       B, K, n_win, W, eff, inv_q,
+                                       PASS1 | PASS2, stream);
+#endif
 }
 
 }  // namespace
@@ -856,10 +976,12 @@ cudaError_t launch(bool nii, const void* ls, const void* lp, const void* la,
 //   -DSISO_MODE=  0 max-log, 1 linlog, 2 log-MAP
 //   -DSISO_CHAN=  0 float32, 1 bfloat16          (ls, lp)
 //   -DSISO_EXT=   0 float32, 1 bfloat16, 2 int8  (la in, le out)
-//   -DSISO_FOLD=  0 (default) the NII and the exact kernel,
-//                 1 the NII kernel with the folded read, alone
-//   -DSISO_BND=   0 (default), or 1: the NII and the exact kernel in their
-//                 boundary forms (K4), alone, behind turbotpu_siso_bnd_launch
+//   -DSISO_FOLD=  0 (default) the NII and the exact contract, both
+//                 window-parallel,
+//                 1 the serial NII kernel with the folded read (K5), alone
+//   -DSISO_BND=   0 (default), or 1: the serial NII and exact kernels in
+//                 their boundary forms (K4), alone, behind
+//                 turbotpu_siso_bnd_launch
 // (the variants compile side by side, and a decode builds only its own; the
 // folded and the boundary kernels are libraries of their own so that a
 // decode without them never waits for their compile).
@@ -883,14 +1005,20 @@ template <> struct StreamType<2> { using type = int8_t; };
 
 // mode, chan_type, ext_type: the caller's codes, which must be this
 // library's (else -1).
-// nii != 0:  ain/aout are (n_win, 8, B) fp32, ckpt unused (may be null);
-// nii == 0:  ckpt is scratch (below), ain/aout unused.
-// idx: null, or in a SISO_FOLD library the (n_win * W,) int32 gather table
-// with values in [0, n_win * W) (nii != 0 only).
-// aw is (W, 8, B) fp32 scratch, except for the exact contract of the plain
-// library (SISO_BND=0), where ckpt is (2, n_win, 8, B) fp32 (the alpha and
-// the beta window checkpoints) and aw is unused (may be null).  Returns the
-// launch's cudaError_t (0 = ok), the first failing one of its launches.
+// The plain library (SISO_FOLD=0, SISO_BND=0), window-parallel:
+//   nii != 0: (n_win, W) are the windows; ain/aout are (n_win, 8, B) fp32,
+//             ckpt is (2, n_win * W / segment_of(W), 8, B) fp32 scratch;
+//   nii == 0: (n_win, W) are the segments the wrapper cut (W =
+//             segment_of(n_win * W)); ckpt is (2, n_win, 8, B) fp32 scratch,
+//             ain/aout unused;
+//   idx is null; aw and threads are unused.
+// The serial libraries (SISO_FOLD=1, SISO_BND=1): aw is (W, 8, B) fp32
+// scratch and threads the block size; nii != 0: ain/aout as above, ckpt
+// unused; nii == 0 (BND only): ckpt is (n_win, 8, B) fp32 scratch.  In a
+// SISO_FOLD library idx is the (n_win * W,) int32 gather table with values
+// in [0, n_win * W) (nii != 0 only).
+// Returns the launch's cudaError_t (0 = ok), the first failing one of its
+// launches.
 #if SISO_BND
 // The boundary forms: a_in, b_in, a_out, b_out are (8, B) fp32 (see Edges);
 // off is the chunk's first global row and K the global info length.
@@ -927,4 +1055,22 @@ extern "C" int turbotpu_siso_launch(
       (float*)aout, (float*)aw, (float*)ckpt, B, K, n_win, W, eff, inv_q,
       threads, (cudaStream_t)stream, Edges{});
 }
+#if !SISO_FOLD
+// One pass of the plain library's window-parallel contracts alone (pass 1 or
+// 2), with the operands of turbotpu_siso_launch, to time it.  Pass 2 reads
+// the checkpoints in ckpt, so a full launch on the same operands comes first.
+extern "C" int turbotpu_siso_pass_launch(
+    int pass, int mode, int chan_type, int ext_type, int nii, const void* ls,
+    const void* lp, const void* la, void* le, const void* ain, void* aout,
+    void* ckpt, int B, int K, int n_win, int W, float eff, float inv_q,
+    void* stream) {
+  if (mode != SISO_MODE || chan_type != SISO_CHAN || ext_type != SISO_EXT)
+    return -1;
+  if (pass != PASS1 && pass != PASS2) return (int)cudaErrorInvalidValue;
+  return (int)launch_parallel<StreamType<SISO_CHAN>::type,
+                              StreamType<SISO_EXT>::type, SISO_MODE>(
+      nii != 0, ls, lp, la, le, (const float*)ain, (float*)aout,
+      (float*)ckpt, B, K, n_win, W, eff, inv_q, pass, (cudaStream_t)stream);
+}
+#endif
 #endif

@@ -15,8 +15,15 @@ exchange would work on registered (peer-mapped or symmetric) memory: a
 caller that builds its payload straight into `send_fwd[i]` / `send_bwd[i]`
 saves a copy, any other payload is copied there first.  The received lists
 are the mesh's receive buffers: valid until the next exchange of that shape
-on that mesh.  A flag buffer and an epoch number per shape carry the
-barrier; the flags only grow (ready flags read 2 x epoch after an exchange).
+on that mesh.  A flag buffer per shape carries the barrier and the exchange
+count, both on the device: the flags only grow, ready flags read 2 x the
+exchanges made after them.
+
+An exchange is launched like a device operation: no host read.  A spin that
+times out sets a sticky error flag instead; `check(mesh)` reads the flags of
+every ring of the mesh (a host sync) and raises, and a caller makes it once,
+after its loop of exchanges (the sequence-sharded decoder does so after its
+iterations).
 
 On a local mesh with CUDA tensors the wrapper launches the kernel or raises;
 with CPU tensors it takes the plain version.  On a process mesh the plain
@@ -27,20 +34,22 @@ shards on two cards, with peer-mapped buffers in the table.
 
 from __future__ import annotations
 
-import ctypes
+import functools
 import math
 
 import torch
 
 from .. import _build
+from .._device import launch_on
 from .mesh import Mesh
 
 TARGET: _build.Target = ("ring_xch", ())
-THREADS = 256
-CTAS_PER_SHARD = 4
+THREADS = 128
+VEC = 4                           # 16-byte vectors per thread and direction
 TIMEOUT_NS = 2_000_000_000        # a spin that outlasts this is a fault
 _ERRORS = {1: "a shard's ring neighbours never signalled the barrier",
            2: "an incoming payload never landed"}
+_ENTRY = _build.PackedEntry(TARGET, "turbotpu_ring_xch_launch", 9)
 
 LAUNCHES = {"ring_xch": 0}
 
@@ -60,13 +69,15 @@ def boundary_exchange_plain(fwd: list, bwd: list, n_seq: int
 
 class RingBuffers:
     """Send and receive buffers of every shard of a local mesh for one
-    payload shape and dtype, the kernel's pointer table over them, its flags
-    (ready[n], arrived[n], error) and the exchange count."""
+    payload shape and dtype, the kernel's pointer table over them, and its
+    flags: ready[n], arrived[n], the error flag, and one exchange count per
+    CTA (n x ctas; none on the CPU, where no kernel runs)."""
 
     def __init__(self, n: int, shape: tuple, dtype: torch.dtype,
                  device: torch.device):
         numel = math.prod(shape)
         nbytes = numel * torch.empty((), dtype=dtype).element_size()
+        self.n = n
         self.n_vec = -(-nbytes // 16)          # the kernel copies 16 B at a time
         raw = [torch.zeros(self.n_vec * 16, dtype=torch.uint8, device=device)
                for _ in range(4 * n)]
@@ -78,8 +89,16 @@ class RingBuffers:
         self._raw = raw
         self.table = torch.tensor([b.data_ptr() for b in raw],
                                   dtype=torch.int64, device=device)
-        self.flags = torch.zeros(2 * n + 1, dtype=torch.int32, device=device)
-        self.epoch = 0
+        dev = self.table.device
+        self.ctas = (ctas_per_shard(n, self.n_vec, dev.index)
+                     if dev.type == "cuda" else 0)
+        self.flags = torch.zeros(2 * n + 1 + n * self.ctas, dtype=torch.int32,
+                                 device=device)
+
+    @property
+    def error(self) -> torch.Tensor:
+        """The error flag (0: no exchange timed out), on the device."""
+        return self.flags[2 * self.n]
 
 
 def ring_buffers(mesh: Mesh, n: int, shape: tuple, dtype: torch.dtype
@@ -91,49 +110,47 @@ def ring_buffers(mesh: Mesh, n: int, shape: tuple, dtype: torch.dtype
     return mesh.state[key]
 
 
-def _launch_fn():
-    fn = _build.load(*TARGET).turbotpu_ring_xch_launch
-    if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, i, i, i, i, ll, i, ll, p]
-        fn.restype = ctypes.c_int
-    return fn
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def ctas_per_shard(n: int, device: torch.device) -> int:
-    """CTAs per shard such that the whole grid is resident at once (at most
-    one CTA per SM), which the kernel's spin-waits need."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    ctas = min(CTAS_PER_SHARD, sms // n)
-    if ctas < 1:
-        raise ValueError(f"{n} shards do not fit one CTA each on {sms} SMs")
-    return ctas
+def ctas_per_shard(n: int, n_vec: int, index: int) -> int:
+    """CTAs per shard: enough that each thread makes one round of VEC
+    vectors per direction, at most one CTA per SM for the whole grid (the
+    kernel's spin-waits need every CTA resident at once)."""
+    most = _sm_count(index) // n
+    if most < 1:
+        raise ValueError(f"{n} shards do not fit one CTA each on "
+                         f"{_sm_count(index)} SMs")
+    return max(1, min(-(-n_vec // (THREADS * VEC)), most))
 
 
 def launch(ring: RingBuffers, n_seq: int) -> None:
     """One exchange over the ring's buffers: send_* -> recv_* of the
-    neighbours.  Asynchronous: the error flag is not read."""
-    n = len(ring.send_fwd)
-    dev = ring.flags.device
-    ctas = ctas_per_shard(n, dev)
-    ring.epoch += 1
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        LAUNCHES["ring_xch"] += 1
-        rc = _launch_fn()(ring.table.data_ptr(), ring.flags.data_ptr(), n,
-                          n_seq, ctas, ring.epoch, ring.n_vec, THREADS,
-                          TIMEOUT_NS, stream)
+    neighbours.  Asynchronous, and reads nothing back: a timeout sets the
+    ring's error flag, which `check` reads."""
+    rc = launch_on(ring.table.device.index, _ENTRY, ring.table.data_ptr(),
+                   ring.flags.data_ptr(), ring.n, n_seq, ring.ctas,
+                   ring.n_vec, THREADS, TIMEOUT_NS)
     if rc != 0:
         raise RuntimeError(f"ring_xch launch failed: cudaError {rc} "
-                           f"({n} shards, rows of {n_seq}, {ctas} CTAs each)")
+                           f"({ring.n} shards, rows of {n_seq}, {ring.ctas} "
+                           f"CTAs each)")
+    LAUNCHES["ring_xch"] += 1
 
 
-def check(ring: RingBuffers) -> None:
-    """Raise if an exchange on these buffers hit its timeout (reads the
-    error flag: a host sync)."""
-    err = int(ring.flags[-1].item())
-    if err:
-        raise RuntimeError(f"ring_xch timed out: {_ERRORS.get(err, err)}")
+def check(mesh: Mesh) -> None:
+    """Raise if an exchange on any of the mesh's ring buffers hit its
+    timeout.  Reads the error flags back (a host sync), so a caller makes it
+    once after its loop of exchanges.  The flags are sticky: a fault stays
+    reported."""
+    for ring in mesh.state.values():
+        if isinstance(ring, RingBuffers):
+            err = int(ring.error)
+            if err:
+                raise RuntimeError(
+                    f"ring_xch timed out: {_ERRORS.get(err, err)}")
 
 
 def boundary_exchange_dma(fwd: list, bwd: list, mesh: Mesh
@@ -169,5 +186,4 @@ def boundary_exchange_dma(fwd: list, bwd: list, mesh: Mesh
             if a.data_ptr() != b.data_ptr():
                 b.copy_(a)
     launch(ring, mesh.seq)
-    check(ring)
     return list(ring.recv_fwd), list(ring.recv_bwd)

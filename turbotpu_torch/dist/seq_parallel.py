@@ -20,8 +20,9 @@ K4, the boundary contracts of the fused kernel (siso/cuda_kernel.py:
 seams alike), with the a-priori mask on the global row (row_offset); any
 other siso runs siso/scan.py's `siso_scan_boundary` on batch-major chunks.
 Edges ride `Mesh.seq_ring` (the reference's ppermute pair), or with
-`boundary_xch="dma"` one K6 launch per iteration (dist/dma.py).  The mesh's
-backend decides how the collectives move data; the decode code is the same.
+`boundary_xch="dma"` one K6 launch per iteration (dist/dma.py; its error
+flag is read once, after the iterations).  The mesh's backend decides how
+the collectives move data; the decode code is the same.
 """
 
 from __future__ import annotations
@@ -354,7 +355,7 @@ def _decode_seq_sharded_scan(mesh: Mesh, cfg: DecoderConfig):
 def _decode_seq_sharded_cells(mesh: Mesh, cfg: DecoderConfig):
     from ..decoder.turbo_cells import _STREAM_TYPES
     from ..siso.cuda_kernel import _e0, siso_cells
-    from .dma import boundary_exchange_dma, ring_buffers
+    from . import dma
 
     n_seq = mesh.seq
     K = cfg.K
@@ -402,46 +403,50 @@ def _decode_seq_sharded_cells(mesh: Mesh, cfg: DecoderConfig):
     def full_llr(ls_c, le1, le21):
         return ls_c.to(f32) + deq * (le1.to(f32) + le21.to(f32))
 
-    def siso(streams, which, la, a_in, b_in, e0):
+    def siso(streams, which, la, a_in, b_in, e0, outs=None):
         """One half-iteration on every shard's chunk through K4.  a_in is
         the chunk-start alpha edge (exact) or (window table, received edge)
-        (NII).  Returns (le, a_out, b_out) lists."""
+        (NII); outs None, or per shard the (8, B) tensors the outgoing edges
+        are written into.  Returns (le, a_out, b_out) lists."""
         out = ([], [], [])
         for i, j in enumerate(js):
             ls_c, lp_c = streams[i][which], streams[i][which + 1]
             bT = e0 if j == n_seq - 1 else b_in[i]
+            edges_out = outs[i] if outs else None
             if cfg.nii:
                 ain, edge_in = a_in[i]
                 le, aout, eout, bout = siso_cells(
                     ls_c, lp_c, la[i], K, cfg.mode, scale,
                     nii_boundaries=(ain, edge_in, bT), window=W,
-                    row_offset=j * C, ext_qscale=qs)
+                    row_offset=j * C, ext_qscale=qs, edges_out=edges_out)
                 res = (le, (aout, eout), bout)
             else:
                 a0 = e0 if j == 0 else a_in[i]
                 res = siso_cells(ls_c, lp_c, la[i], K, cfg.mode, scale,
                                  boundaries=(a0, bT), window=W,
-                                 row_offset=j * C, ext_qscale=qs)
+                                 row_offset=j * C, ext_qscale=qs,
+                                 edges_out=edges_out)
             for lst, x in zip(out, res):
                 lst.append(x)
         return out
 
-    def xch_edges(a1o, b1o, a2o, b2o, e0):
+    def xch_edges(a1o, b1o, a2o, b2o, e0, ring):
         """The iteration's edges to the ring neighbours: alphas forward,
         betas backward.  Under NII the window tables stay, the chunk edge
-        moves, and shard 0 pins e0."""
+        moves, and shard 0 pins e0.  ring: None, or the group's K6 buffers
+        and views (`ring_views`), whose send buffers the SISOs have written
+        their edges into."""
         fa1 = [a[1] for a in a1o] if cfg.nii else a1o
         fa2 = [a[1] for a in a2o] if cfg.nii else a2o
-        if use_dma:
-            B = e0.shape[1]
-            # build the payloads in the mesh's send buffers where it has them
-            bufs = (ring_buffers(mesh, n, (2, 8, B), f32)
-                    if mesh.backend == "local" and dev.type == "cuda" else None)
-            fwd = [torch.stack([x, y], out=bufs.send_fwd[i] if bufs else None)
-                   for i, (x, y) in enumerate(zip(fa1, fa2))]
-            bwd = [torch.stack([x, y], out=bufs.send_bwd[i] if bufs else None)
-                   for i, (x, y) in enumerate(zip(b1o, b2o))]
-            frx, brx = boundary_exchange_dma(fwd, bwd, mesh)
+        if ring is not None:
+            # the payloads are in place: one launch, nothing to check
+            bufs, _, recv = ring
+            dma.launch(bufs, n_seq)
+            (a1n, b1n), (a2n, b2n) = recv
+        elif use_dma:
+            fwd = [torch.stack([x, y]) for x, y in zip(fa1, fa2)]
+            bwd = [torch.stack([x, y]) for x, y in zip(b1o, b2o)]
+            frx, brx = dma.boundary_exchange_dma(fwd, bwd, mesh)
             a1n, a2n = [x[0] for x in frx], [x[1] for x in frx]
             b1n, b2n = [x[0] for x in brx], [x[1] for x in brx]
         else:
@@ -451,6 +456,23 @@ def _decode_seq_sharded_cells(mesh: Mesh, cfg: DecoderConfig):
             a1n = [(a[0], e0 if j == 0 else x) for a, x, j in zip(a1o, a1n, js)]
             a2n = [(a[0], e0 if j == 0 else x) for a, x, j in zip(a2o, a2n, js)]
         return a1n, b1n, a2n, b2n
+
+    def ring_views(B):
+        """K6's buffers on a local mesh of the card, for payloads of both
+        SISOs' edges (2, 8, B): SISO s writes its outgoing alpha and beta
+        edges straight into slot s of each shard's send buffers, and its
+        next incoming edges are the same slot of the receive buffers.
+        Returns (buffers, send views, receive views), the views per SISO as
+        ([alpha or beta edge per shard], ...); None elsewhere (the CPU and
+        the process mesh exchange copies)."""
+        if not (use_dma and mesh.backend == "local" and dev.type == "cuda"):
+            return None
+        bufs = dma.ring_buffers(mesh, n, (2, 8, B), f32)
+        send = [[(bufs.send_fwd[i][s], bufs.send_bwd[i][s]) for i in range(n)]
+                for s in (0, 1)]
+        recv = [([x[s] for x in bufs.recv_fwd], [x[s] for x in bufs.recv_bwd])
+                for s in (0, 1)]
+        return bufs, send, recv
 
     def decode(ls, lp1, lp2, t1, t2):
         ls, lp1, lp2, t1, t2 = _inputs(mesh, (ls, lp1, lp2, t1, t2))
@@ -486,7 +508,8 @@ def _decode_seq_sharded_cells(mesh: Mesh, cfg: DecoderConfig):
                 a_init = [(tbl, e0 if j == 0 else uni) for j in js]
             else:
                 a_init = [uni] * n
-            groups.append(dict(streams=streams, e0=e0, le21=[zE] * n,
+            groups.append(dict(streams=streams, e0=e0, ring=ring_views(Bg),
+                               le21=[zE] * n,
                                le1=[zE] * n, a1=list(a_init), b1=[uni] * n,
                                a2=list(a_init), b2=[uni] * n,
                                done=[torch.zeros((Bg,), dtype=torch.bool,
@@ -499,14 +522,16 @@ def _decode_seq_sharded_cells(mesh: Mesh, cfg: DecoderConfig):
         def iteration(g):
             """Both SISOs and the exchanges of one iteration of group g;
             returns (le1, le21_new)."""
-            st = g["streams"]
-            le1, a1o, b1o = siso(st, 0, g["le21"], g["a1"], g["b1"], g["e0"])
+            st, ring = g["streams"], g["ring"]
+            send = ring[1] if ring else (None, None)
+            le1, a1o, b1o = siso(st, 0, g["le21"], g["a1"], g["b1"], g["e0"],
+                                 send[0])
             le2, a2o, b2o = siso(st, 2, xch_perm(le1), g["a2"], g["b2"],
-                                 g["e0"])
+                                 g["e0"], send[1])
             le21_new = xch_inv(le2)
             # edges move after both SISOs of the iteration
             g["a1"], g["b1"], g["a2"], g["b2"] = xch_edges(a1o, b1o, a2o,
-                                                          b2o, g["e0"])
+                                                          b2o, g["e0"], ring)
             return le1, le21_new
 
         if cfg.early_term == "none":
@@ -553,6 +578,10 @@ def _decode_seq_sharded_cells(mesh: Mesh, cfg: DecoderConfig):
                 # lockstep exit over data (see the scan route)
                 undone = int(mesh.data_sum(undone_local)[0])
                 it += 1
+        if use_dma:
+            # the exchanges read nothing back: a timeout in any of them
+            # raises here, once per decode
+            dma.check(mesh)
 
         # per group, the (hard, iters, L) of each data row's first shard
         lead = mesh.leaders

@@ -19,54 +19,24 @@ plain version only for a tensor on the CPU.  `LAUNCHES` counts launches.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import struct
-import threading
 
 import numpy as np
 import torch
 
 from .. import _build
-from .._device import resolve_device
+from .._device import launch_on, resolve_device
 
 LAUNCHES = {"row_gather": 0}
 TARGET: _build.Target = ("row_gather", ())
 _ELEMENT_SIZES = (1, 2, 4)
-_ARGS = struct.Struct("6q")     # the kernel's argument block
-_launch = None                  # (C entry point, raw-stream getter)
-_blocks = threading.local()     # one argument block per thread
+# the kernel's C entry takes one pointer to six int64 arguments
+_ENTRY = _build.PackedEntry(TARGET, "turbotpu_row_gather_launch", 6)
 
 
 def row_gather_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Plain version of `row_gather`: fancy indexing along the rows."""
     return src[idx.to(torch.long)]
-
-
-def _resolve():
-    """The kernel's C entry point and the current-stream getter, resolved
-    once.  The entry takes one pointer to six int64 arguments: a typed
-    ctypes call converts every argument, which costs several microseconds a
-    call on the host."""
-    global _launch
-    if _launch is None:
-        fn = _build.load(*TARGET).turbotpu_row_gather_launch
-        fn.restype = ctypes.c_int
-        raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-        stream = raw or (lambda i: torch.cuda.current_stream(i).cuda_stream)
-        _launch = (fn, stream)
-    return _launch
-
-
-def _arg_block():
-    """This thread's argument block and its address (ctypes releases the GIL
-    during the call, so threads must not share one)."""
-    blk = getattr(_blocks, "blk", None)
-    if blk is None:
-        buf = bytearray(_ARGS.size)
-        arr = (ctypes.c_char * _ARGS.size).from_buffer(buf)
-        blk = _blocks.blk = (buf, ctypes.c_void_p(ctypes.addressof(arr)), arr)
-    return blk
 
 
 def row_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -94,20 +64,8 @@ def row_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(src)
     if T == 0 or B == 0:
         return out
-    fn, stream = _resolve()
-    buf, ptr, _ = _arg_block()
-    row_bytes = B * src.element_size()
-    s, o = src.data_ptr(), out.data_ptr()
-    index = dev.index
-    if index == torch.cuda.current_device():
-        _ARGS.pack_into(buf, 0, s, idx.data_ptr(), o, T, row_bytes,
-                        stream(index))
-        rc = fn(ptr)
-    else:
-        with torch.cuda.device(index):
-            _ARGS.pack_into(buf, 0, s, idx.data_ptr(), o, T, row_bytes,
-                            stream(index))
-            rc = fn(ptr)
+    rc = launch_on(dev.index, _ENTRY, src.data_ptr(), idx.data_ptr(),
+                   out.data_ptr(), T, B * src.element_size())
     if rc != 0:
         raise RuntimeError(f"row_gather launch failed: cudaError {rc} "
                            f"(T={T}, B={B}, {src.dtype})")
@@ -115,24 +73,27 @@ def row_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def graph_ms(fn, n: int, n_replays: int = 5) -> float:
+def graph_ms(fn, n: int, n_replays: int = 5, counts: dict | None = None
+             ) -> float:
     """Device time of one call of `fn`: n calls captured in a CUDA graph,
     replayed `n_replays` times between two CUDA events, per call.  The host
     enqueues one graph per replay, so the time is the device's alone.  The
     calls made while the graph is captured launch nothing, so they are taken
-    out of `LAUNCHES` again; the replays do not pass through the wrapper and
+    out of the wrapper's launch counts again (`counts`, this module's
+    `LAUNCHES` by default); the replays do not pass through the wrapper and
     are not counted either."""
+    counts = LAUNCHES if counts is None else counts
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):        # warm-up outside the capture
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    counted = dict(LAUNCHES)
+    counted = dict(counts)
     with torch.cuda.graph(graph):
         for _ in range(n):
             fn()
-    LAUNCHES.update(counted)
+    counts.update(counted)
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)

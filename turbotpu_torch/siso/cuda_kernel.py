@@ -7,9 +7,12 @@ non-boundary contracts:
 
 * `siso_nii`   -- nii=True: window-start alphas inherited from the previous
   half-iteration (`ain`), fresh ones returned (`aout`);
-* `siso_exact` -- nii=False: no approximation; the kernel runs it
-  window-parallel (two launches per call, counted once: alpha and beta walks
-  that leave checkpoints at segment edges, then every segment decoded alone);
+* `siso_exact` -- nii=False: no approximation;
+
+  the kernels run both window-parallel, two launches per call, counted once:
+  a beta walk beside alpha walks (exact: one over the whole trellis; NII: one
+  per window, from its inherited start) that leave checkpoints at segment
+  edges, then every segment decoded alone;
 
 * `siso_nii_fold` -- the NII contract with the extrinsic interleave folded
   into the kernel's a-priori read (the reference's `fold_gather=True` call,
@@ -109,14 +112,17 @@ def window_len(KT: int) -> int:
     return 128 if KT >= 256 else _round_up(KT, UNROLL)
 
 
-def exact_segment(T: int) -> int:
-    """The unit of the exact kernel's second pass: the largest power of two
-    up to 64 that divides the padded trellis length T (a multiple of 8).
-    The exact contract's output does not depend on the window (its
-    checkpoints sit on 8-step renorm edges), so the kernel decodes segments
-    shorter than the window: more independent threads, less shared memory."""
+def exact_segment(n: int) -> int:
+    """The unit of the window-parallel kernels' second pass: the largest
+    power of two up to 64 that divides n (a multiple of 8).  The exact
+    contract cuts the padded trellis (n = T): its output does not depend on
+    the window (its checkpoints sit on 8-step renorm edges), so the kernel
+    decodes segments shorter than the window, for more independent threads
+    and less shared memory.  The NII contract cuts each window (n = W), so
+    that every segment edge is also a renorm edge of the window's alpha
+    walk."""
     seg = 64
-    while T % seg:
+    while n % seg:
         seg //= 2
     return seg
 
@@ -328,13 +334,19 @@ def build_targets() -> list[_build.Target]:
 
 
 def _launch_fn(mode: str, chan: torch.dtype, ext: torch.dtype,
-               fold: bool = False, bnd: bool = False):
+               fold: bool = False, bnd: bool = False, one_pass: bool = False):
+    """The C entry of one variant: the call's launch, or with `one_pass`
+    the plain library's launch of one pass alone."""
     lib = _build.load(*_target(_MODE_CODES[mode], _CHAN_TYPES[chan],
                                _EXT_TYPES[ext], fold, bnd))
-    fn = lib.turbotpu_siso_bnd_launch if bnd else lib.turbotpu_siso_launch
+    fn = (lib.turbotpu_siso_pass_launch if one_pass else
+          lib.turbotpu_siso_bnd_launch if bnd else lib.turbotpu_siso_launch)
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if bnd:
+        if one_pass:
+            fn.argtypes = [i, i, i, i, i, p, p, p, p, p, p, p, i, i, i, i, f,
+                           f, p]
+        elif bnd:
             fn.argtypes = [i, i, i, i, p, p, p, p, p, p, p, p, p, p, p, p, i,
                            i, i, i, i, f, f, i, p]
         else:
@@ -344,58 +356,107 @@ def _launch_fn(mode: str, chan: torch.dtype, ext: torch.dtype,
     return fn
 
 
+def _scratch(T, B, W, nii, parallel, dev):
+    """The kernel's window table and scratch: (aout, ck, aw, n_win, W) with
+    (n_win, W) as the kernel takes them.  NII: aout is the (n_win, 8, B)
+    window table.  The window-parallel contracts (the plain library) keep
+    the alpha and beta checkpoints at segment edges, ck (2, n_seg, 8, B),
+    and the segment alphas on chip; the exact contract is handed its
+    segments as windows.  The serial forms take the (W, 8, B) alpha window
+    scratch aw, and the boundary exact form phase 1's (n_win, 8, B) window
+    starts as ck."""
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    n_win = T // W
+    aout = empty(n_win, 8, B) if nii else None
+    if not parallel:
+        return aout, None if nii else empty(n_win, 8, B), empty(W, 8, B), \
+            n_win, W
+    seg = exact_segment(W if nii else T)
+    ck = empty(2, T // seg, 8, B)
+    return (aout, ck, None, n_win, W) if nii else (None, ck, None, T // seg,
+                                                   seg)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _launch(ls, lp, la, ain, K_real, W, eff, inv_q, mode, idx=None,
-            edges=None, row_offset=0):
+            edges=None, row_offset=0, edges_out=None):
     """Launch the NII (ain given; with idx its folded form) or exact (ain
     None) kernel of `mode` on CUDA tensors; with edges = (a_in, b_in) its
-    boundary form.  Returns (le, aout, a_edge, b_edge) as _siso_plain."""
+    boundary form, which writes its outgoing edges into edges_out where
+    given.  Returns (le, aout, a_edge, b_edge) as _siso_plain."""
     T, B = ls.shape
-    n_win = T // W
     dev = ls.device
     f32 = torch.float32
     le = torch.empty_like(la)
     nii, fold, bnd = ain is not None, idx is not None, edges is not None
-    # The exact contract (not its boundary form) runs window-parallel over
-    # segments of exact_segment(T) steps: its scratch is the alpha and the
-    # beta checkpoints at the segment edges, (2, T / seg, 8, B), and it keeps
-    # the segment alphas on chip.  The other forms take the (W, 8, B) alpha
-    # window scratch and (n_win, 8, B) checkpoints (NII: the fresh window
-    # starts; boundary exact: phase 1's).
-    parallel = not (nii or bnd)
-    if parallel:
-        W = exact_segment(T)
-        n_win = T // W
-    aw = None if parallel else torch.empty((W, 8, B), dtype=f32, device=dev)
-    ck = torch.empty(((2,) if parallel else ()) + (n_win, 8, B), dtype=f32,
-                     device=dev)
+    aout, ck, aw, n_win, W = _scratch(T, B, W, nii, not (fold or bnd), dev)
     fn = _launch_fn(mode, ls.dtype, la.dtype, fold, bnd)
     codes = (_MODE_CODES[mode], _CHAN_TYPES[ls.dtype], _EXT_TYPES[la.dtype],
              int(nii))
-    tables = (ain.data_ptr() if nii else None, ck.data_ptr() if nii else None,
-              None if parallel else aw.data_ptr(),
-              None if nii else ck.data_ptr())
+    tables = (_ptr(ain), _ptr(aout), _ptr(aw), _ptr(ck))
     tail = (B, K_real, n_win, W, eff, inv_q, THREADS)
     a_edge = b_edge = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         LAUNCHES[kernel_name(nii, mode, fold, bnd)] += 1
         if bnd:
-            a_edge = torch.empty((8, B), dtype=f32, device=dev)
-            b_edge = torch.empty((8, B), dtype=f32, device=dev)
+            a_edge, b_edge = edges_out or (
+                torch.empty((8, B), dtype=f32, device=dev),
+                torch.empty((8, B), dtype=f32, device=dev))
             rc = fn(*codes, ls.data_ptr(), lp.data_ptr(), la.data_ptr(),
                     le.data_ptr(), *tables, edges[0].data_ptr(),
                     edges[1].data_ptr(), a_edge.data_ptr(), b_edge.data_ptr(),
                     row_offset, *tail, stream)
         else:
             rc = fn(*codes, ls.data_ptr(), lp.data_ptr(), la.data_ptr(),
-                    idx.data_ptr() if fold else None, le.data_ptr(), *tables,
-                    *tail, stream)
+                    _ptr(idx), le.data_ptr(), *tables, *tail, stream)
     if rc != 0:
         raise RuntimeError(
             f"siso kernel launch failed: cudaError {rc} "
             f"(T={T}, B={B}, W={W}, chan={ls.dtype}, ext={la.dtype}, "
             f"nii={nii}, fold={fold}, boundary={bnd}, mode={mode})")
-    return le, (ck if nii else None), a_edge, b_edge
+    return le, aout, a_edge, b_edge
+
+
+def pass_launchers(ls, lp, la, K_real: int, mode: str, scale: float = 1.0,
+                   nii_ckpt: torch.Tensor | None = None, window: int = 0,
+                   ext_qscale: float = 0.0):
+    """The two passes of one window-parallel `siso_cells` call (NII with
+    `nii_ckpt`, else exact) on CUDA tensors, as two callables that launch
+    one pass each on the same operands and scratch, to time them apart.
+    Both passes run once here first, so the checkpoints that pass 2 reads
+    hold this call's values.  These launches are a measurement, not the
+    decoder's path: they are not counted in `LAUNCHES`."""
+    T, B = ls.shape
+    W = window or window_len(T)
+    nii = nii_ckpt is not None
+    dev = ls.device
+    if dev.type != "cuda":
+        raise ValueError("pass_launchers times the kernel: CUDA tensors only")
+    eff = scale * (ext_qscale if ext_qscale else 1.0)
+    inv_q = 1.0 / ext_qscale if ext_qscale else 1.0
+    le = torch.empty_like(la)
+    aout, ck, _, n_win, Wk = _scratch(T, B, W, nii, True, dev)
+    fn = _launch_fn(mode, ls.dtype, la.dtype, one_pass=True)
+    codes = (_MODE_CODES[mode], _CHAN_TYPES[ls.dtype], _EXT_TYPES[la.dtype],
+             int(nii))
+
+    def run(which):
+        with torch.cuda.device(dev):
+            rc = fn(which, *codes, ls.data_ptr(), lp.data_ptr(),
+                    la.data_ptr(), le.data_ptr(), _ptr(nii_ckpt), _ptr(aout),
+                    ck.data_ptr(), B, K_real, n_win, Wk, eff, inv_q,
+                    torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"siso pass {which} launch failed: "
+                               f"cudaError {rc}")
+
+    run(1)
+    run(2)
+    return (lambda: run(1)), (lambda: run(2))
 
 
 def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
@@ -404,7 +465,8 @@ def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
                ext_qscale: float = 0.0,
                gather_idx: torch.Tensor | None = None,
                boundaries: tuple | None = None,
-               nii_boundaries: tuple | None = None, row_offset: int = 0):
+               nii_boundaries: tuple | None = None, row_offset: int = 0,
+               edges_out: tuple | None = None):
     """Kernel entry: raw LLR streams in, extrinsics out.
 
     ls/lp/la: contiguous (KTp, B) with KTp a multiple of the window; pad
@@ -442,6 +504,13 @@ def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
     a-priori mask becomes [row_offset + t < K_real], K_real the global info
     length.  The three contracts (nii_ckpt, boundaries, nii_boundaries) are
     mutually exclusive.
+
+    edges_out: optional (a_out, b_out), contiguous (8, B) fp32 tensors on
+    the streams' device, with either boundary form: the outgoing edges (the
+    exact contract's aout, the NII contract's eout, and bout) are written
+    into them, and they are what comes back.  The sequence-sharded decoder
+    passes views of K6's send buffers, so no copy is made before an
+    exchange.
     """
     if mode not in MODES:
         raise ValueError(f"unknown max* mode {mode!r}")
@@ -487,6 +556,14 @@ def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
                                   for e in edges):
             raise ValueError(f"boundary edges must be fp32 of shape {(8, B)}")
         tensors.extend(edges)
+    if edges_out is not None:
+        if edges is None:
+            raise ValueError("edges_out needs a boundary contract")
+        if len(edges_out) != 2 or any(
+                e.shape != (8, B) or e.dtype != torch.float32
+                for e in edges_out):
+            raise ValueError(f"edges_out must be fp32 of shape {(8, B)}")
+        tensors.extend(edges_out)
     if gather_idx is not None:
         if edges is not None:
             raise ValueError("gather_idx has no boundary form")
@@ -506,12 +583,15 @@ def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
         le, ck, a_edge, b_edge = _siso_plain(
             ls, lp, la, ain, K_real, W, scale, ext_qscale, mode, gather_idx,
             edges, row_offset)
+        if edges_out is not None:
+            a_edge = edges_out[0].copy_(a_edge)
+            b_edge = edges_out[1].copy_(b_edge)
     elif ls.device.type == "cuda":
         eff = scale * (ext_qscale if ext_qscale else 1.0)
         inv_q = 1.0 / ext_qscale if ext_qscale else 1.0
         le, ck, a_edge, b_edge = _launch(ls, lp, la, ain, K_real, W, eff,
                                          inv_q, mode, gather_idx, edges,
-                                         row_offset)
+                                         row_offset, edges_out)
     else:
         raise ValueError(f"unsupported device {ls.device}")
     if boundaries is not None:
