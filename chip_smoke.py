@@ -9,10 +9,11 @@ seq, dist, compact, ber.
 Needs one NVIDIA card, nvcc and no network.  It builds the port's CUDA
 kernels from turbotpu_torch/csrc (siso.cu in all its variants, row_gather.cu,
 issue_rate.cu, ring_xch.cu), holds each against its plain PyTorch version on
-the card (the window-parallel exact and NII kernels at difference 0, also at
-batches that are not a multiple of their blocks, in one window and with
-masked rows; their two passes timed apart at the flagship shape), and
-drives the port's entry points:
+the card (every SISO kernel, exact, NII, folded and boundary, at difference
+0 in every mode, also at batches that are not a multiple of their blocks,
+in one window or one segment and with masked rows; the two passes of the
+exact, NII, folded and boundary kernels timed apart), and drives the port's
+entry points:
 
 * `turbotpu_torch.turbo_decode` on the flagship configuration (LTE K=6144,
   1024 codewords, max-log, 6 iterations, NII window 256, bf16 channel
@@ -82,14 +83,10 @@ KERNEL_SOURCE = "turbotpu_torch/csrc/siso.cu"
 ALL_PHASES = ("kernels", "decode", "bench", "mixed", "gather", "encoder",
               "fold", "calibrate", "tb", "seq", "dist", "compact", "ber")
 
-# kernel vs plain version on the card.  max-log and linlog: the same fp32
-# operations in the same order, so codes, le and checkpoints must be equal.
-# log-MAP: expf/log1pf of the CUDA math library in the kernel against eager
-# PyTorch's; both are the full-precision functions, a difference of a few
-# ulp in a correction is allowed to grow through the recursion up to 1e-4 on
-# fp32 le and window starts, and int8 codes and bf16 values may land on the
-# neighbouring value at a rounding tie (those are counted).
-TOLERANCE = {"maxlog": 0.0, "linlog": 0.0, "logmap": 1e-4}
+# kernel vs plain version on the card: difference 0 in every mode.  The
+# kernels and the plain versions do the same fp32 operations in the same
+# order, and log-MAP's expf/log1pf are the CUDA math library's on both sides,
+# so codes, le, window starts and edges must be equal.
 
 # Frame-error counts of the same grid points in results/tpu_accept.jsonl
 # (frame errors, frames).  They are properties of the code and the decoder,
@@ -189,20 +186,11 @@ def time_launches(fn, n):
     return event_ms(fn, n)
 
 
-def le_error(got, want, tol):
-    """(error, tolerance) of a kernel's le against its plain version's.  With
-    tol == 0 and for fp32 streams: the largest absolute difference against
-    tol.  With tol > 0 a rounded stream may land on the neighbouring value
-    where the fp32 extrinsic sits at a rounding tie: int8 codes may differ
-    by one step, bf16 values by one bf16 step (relative 2^-7)."""
-    a, b = got.to(torch.float32), want.to(torch.float32)
-    d = (a - b).abs()
-    if tol and got.dtype == torch.bfloat16:
-        scale = torch.maximum(a.abs(), b.abs()).clamp_min(1e-30)
-        return float((d / scale).max()), 2.0 ** -7
-    if tol and got.dtype == torch.int8:
-        return float(d.max()), 1.0
-    return float(d.max()), tol
+def max_diff(got, want) -> float:
+    """The largest absolute difference of two tensors (0 for empty ones)."""
+    if not got.numel():
+        return 0.0
+    return float((got.to(torch.float32) - want.to(torch.float32)).abs().max())
 
 
 def umts_frames(K, B, dev, seed=1, ebn0_db=1.0):
@@ -244,12 +232,10 @@ def check_kernels(dev, results):
     }
     worst = {ck.kernel_name(nii, mode, fold): 0.0
              for mode in MODES for nii, fold in ck.CONTRACTS}
-    ties = {name: 0 for name in worst}
     cases, other_shapes = [], []
     lte_inputs, umts_inputs = {}, {}
     for mode in MODES:
         scale = 0.75 if mode == "maxlog" else 1.0
-        tol = TOLERANCE[mode]
         for (K, W, B), pairs in shapes[mode]:
             if K == 5114:
                 if B not in umts_inputs:
@@ -332,34 +318,17 @@ def check_kernels(dev, results):
                     compared.append((fold_name, le_f, le_fp, aout_f[1:],
                                      aout_fp[1:]))
                     case["fold_vs_materialised_max_abs_diff"] = 0.0
-                parallel = (ck.kernel_name(False, mode),
-                            ck.kernel_name(True, mode))
                 for name, got, want, ck_got, ck_want in compared:
-                    e_le, le_tol = le_error(got, want, tol)
-                    e_ck = (0.0 if ck_got is None
-                            else float((ck_got - ck_want).abs().max()))
-                    n_diff = int((got != want).sum())
-                    if not (np.isfinite(e_le) and np.isfinite(e_ck)
-                            and e_le <= le_tol and e_ck <= tol):
+                    e_le = max_diff(got, want)
+                    e_ck = 0.0 if ck_got is None else max_diff(ck_got, ck_want)
+                    if not (torch.equal(got, want) and (
+                            ck_got is None or torch.equal(ck_got, ck_want))):
                         raise AssertionError(
-                            f"{name} disagrees with its plain version: le "
-                            f"{e_le} (tolerance {le_tol}), window starts "
-                            f"{e_ck} (tolerance {tol}) at K={K} W={W} B={B} "
-                            f"{chan}+{ext}")
-                    # the window-parallel kernels (exact and NII) are
-                    # held to difference 0 in every mode
-                    if name in parallel and (n_diff or e_ck):
-                        raise AssertionError(
-                            f"{name} differs from its plain version in "
-                            f"{n_diff} values of le (window starts "
-                            f"{e_ck}) at K={K} W={W} B={B} {chan}+{ext}")
-                    if tol and ext != "float32":
-                        ties[name] += n_diff
-                    else:
-                        worst[name] = max(worst[name], e_le)
-                    worst[name] = max(worst[name], e_ck)
-                    case[name] = {"le_err": e_le, "ckpt_max_abs_err": e_ck,
-                                  "values_differing": n_diff}
+                            f"{name} differs from its plain version: le "
+                            f"{e_le}, window starts {e_ck} at K={K} W={W} "
+                            f"B={B} {chan}+{ext}")
+                    worst[name] = max(worst[name], e_le, e_ck)
+                    case[name] = {"le_err": e_le, "ckpt_max_abs_err": e_ck}
                 cases.append(case)
 
                 # Times.  The shape each kernel is reported at is the one its
@@ -399,16 +368,16 @@ def check_kernels(dev, results):
                     else:
                         other_shapes.append({"name": name, **shape, **timing})
 
-                # The two passes of the window-parallel kernels timed apart
-                # at the flagship shape, one pass a launch between CUDA
-                # events (these launches are not counted).
+                # The two passes of the NII, exact and folded kernels timed
+                # apart at the flagship shape, one pass a launch between
+                # CUDA events (these launches are not counted).
                 if mode == "maxlog" and flagship:
-                    for nii in (True, False):
+                    for nii, fold in ck.CONTRACTS:
                         p1, p2 = ck.pass_launchers(
                             ls2, lp2, la, K, mode, scale,
                             nii_ckpt=ain if nii else None, window=W,
-                            ext_qscale=qs)
-                        results[ck.kernel_name(nii, mode)]["pass_ms"] = {
+                            ext_qscale=qs, gather_idx=idx if fold else None)
+                        results[ck.kernel_name(nii, mode, fold)]["pass_ms"] = {
                             "pass1": time_launches(p1, 20),
                             "pass2": time_launches(p2, 20)}
 
@@ -456,24 +425,23 @@ def check_kernels(dev, results):
     parallel_cases = check_parallel_edges(dev, worst)
     for name in worst:
         results[name]["max_abs_err"] = worst[name]
-        results[name]["rounded_values_differing"] = ties[name]
-    emit("kernels", tolerance=TOLERANCE, cases=cases,
+    emit("kernels", tolerance=0.0, cases=cases,
          parallel_cases=parallel_cases,
          kernels={k: {kk: results[k].get(kk) for kk in (
-             "max_abs_err", "rounded_values_differing", "ms", "plain_ms",
-             "bound_ms", "bound_by", "pass_ms")} for k in worst},
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "pass_ms")} for k in worst},
          other_shapes=other_shapes)
 
 
 def check_parallel_edges(dev, worst):
-    """The window-parallel kernels, exact and NII, at the shapes their
-    blocks and passes single out, every mode and stream pair, difference 0
-    (NII: le and the window starts aout[1:]): B not a multiple of the
-    4-codeword warps of pass 1 (70, 37, 45: the register path) or of the
-    32-codeword blocks (and 1000 at the flagship shape), one window (K=40 in
-    W=48, three segments of 16; in W=64, one segment: no first pass), K_real
-    below the trellis' K (masked rows).  NII takes real window starts from a
-    cold call."""
+    """The exact, NII and folded kernels at the shapes their blocks and
+    passes single out, every mode and stream pair, difference 0 (NII and
+    folded: le and the window starts aout[1:]; folded through a random
+    permutation of the rows): B not a multiple of the 4-codeword warps of
+    pass 1 (70, 37, 45: the register path) or of the 32-codeword blocks (and
+    1000 at the flagship shape), one window (K=40 in W=48, three segments of
+    16; in W=64, one segment: no first pass), K_real below the trellis' K
+    (masked rows).  NII takes real window starts from a cold call."""
     from turbotpu_torch.harness.bench import make_decode_inputs
     from turbotpu_torch.siso import cuda_kernel as ck
     types = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -497,16 +465,19 @@ def check_parallel_edges(dev, worst):
                 ls, lp, torch.zeros((T, B), dtype=types[ext], device=dev),
                 K_real, mode, scale, window=W, ext_qscale=qs,
                 nii_ckpt=torch.zeros((T // W, 8, B), device=dev))
-            for nii in (False, True):
-                name = ck.kernel_name(nii, mode)
+            idx = torch.from_numpy(np.random.default_rng(T + B).permutation(
+                T).astype(np.int32)).to(dev)
+            for nii, fold in ck.CONTRACTS:
+                name = ck.kernel_name(nii, mode, fold)
+                gather = idx if fold else None
                 if nii:
                     got, aout = ck.siso_cells(ls, lp, la, K_real, mode, scale,
                                               window=W, ext_qscale=qs,
-                                              nii_ckpt=ain)
+                                              nii_ckpt=ain, gather_idx=gather)
                     want, aout_p = ck.siso_nii_plain(ls, lp, la, ain, K_real,
-                                                     W, scale, qs, mode)
-                    e_ck = (float((aout[1:] - aout_p[1:]).abs().max())
-                            if T > W else 0.0)
+                                                     W, scale, qs, mode,
+                                                     gather_idx=gather)
+                    e_ck = max_diff(aout[1:], aout_p[1:])
                     same = torch.equal(aout[1:], aout_p[1:])
                     seg = ck.exact_segment(W)
                 else:
@@ -515,9 +486,8 @@ def check_parallel_edges(dev, worst):
                     want = ck.siso_exact_plain(ls, lp, la, K_real, W, scale,
                                                qs, mode)
                     e_ck, same, seg = 0.0, True, ck.exact_segment(T)
-                err = float((got.float() - want.float()).abs().max())
-                if err != 0.0 or e_ck != 0.0 or not (
-                        same and torch.equal(got, want)):
+                err = max_diff(got, want)
+                if not (same and torch.equal(got, want)):
                     raise AssertionError(
                         f"{name} differs from its plain version: le {err}, "
                         f"window starts {e_ck} at K={K} K_real={K_real} "
@@ -988,81 +958,134 @@ C5_K, C5_B, C5_EBN0 = 6144, 4096, 0.8
 
 
 def check_k4(dev, results, inputs):
-    """K4 at C5's chunk shape (seq=2, bf16 channel and extrinsic streams):
-    every instantiation against its plain version on the last chunk (row
-    offset C: the mask cuts it at global row K), with an alpha edge made by
-    a call on the first chunk, a beta edge and an a-priori stream made by a
-    cold call on the last, timed.  Then the two e0 identities on the whole
+    """K4 against its plain version at difference 0 (le, the window table's
+    slots 1.., the outgoing edges), in both contracts: every mode at C5's
+    chunk shape (the last chunk of seq=2, bf16 channel and extrinsic
+    streams; row offset C, so the mask cuts it at global row K; exact C=3200
+    W=128, NII C=3328 W=256), with an alpha edge made by a call on the first
+    chunk and a beta edge and an a-priori stream made by a cold call on the
+    last, timed, max-log's two passes timed apart; max-log at the last chunk
+    of seq=4 (C=1664, W=128), timed; every mode and stream pair at B=70
+    (K=168, seq=2: chunks of 88 steps in eleven segments of 8; the register
+    path) and at a chunk of one segment (K=120, seq=2: 64 steps, no first
+    pass; the mask inside it).  Then the two e0 identities on the whole
     trellis at the flagship shape."""
     from turbotpu_torch.dist.seq_parallel import chunk_sizing
     from turbotpu_torch.harness.bench import flagship_config, make_decode_inputs
     from turbotpu_torch.siso import cuda_kernel as ck
 
     bf16, f32 = torch.bfloat16, torch.float32
+    types = {"float32": f32, "bfloat16": bf16, "int8": torch.int8}
+
+    def compare(nii, mode, ls, lp, K, n_seq, window, chan, ext, j=None):
+        """Chunk j (the last by default) of ls/lp against its plain version;
+        returns (errors, the call, its keyword arguments, plain seconds)."""
+        C, W, n_win, KTp = chunk_sizing(K + 3, n_seq, window)
+        j = n_seq - 1 if j is None else j
+        B = ls.shape[1]
+        scale = 0.75 if mode == "maxlog" else 1.0
+        qs = 0.25 if ext == "int8" else 0.0
+        first, cur = (ls[:C], lp[:C]), (ls[j * C:(j + 1) * C],
+                                        lp[j * C:(j + 1) * C])
+        uni = torch.zeros((8, B), dtype=f32, device=dev)
+        z = torch.zeros((C, B), dtype=types[ext], device=dev)
+        opt = dict(window=W, row_offset=j * C, ext_qscale=qs)
+        _, a_edge, _ = ck.siso_cells(*first, z, K, mode, scale,
+                                     boundaries=(ck._e0(B, dev), uni),
+                                     window=W, ext_qscale=qs)
+        la, _, b_edge = ck.siso_cells(*cur, z, K, mode, scale,
+                                      boundaries=(uni, uni), **opt)
+        if nii:
+            tbl = ck.siso_cells(*cur, z, K, mode, scale, nii_boundaries=(
+                torch.zeros((n_win, 8, B), device=dev), uni, uni), **opt)[1]
+            kw = dict(opt, nii_boundaries=(tbl, a_edge, b_edge))
+        else:
+            kw = dict(opt, boundaries=(a_edge, b_edge))
+        got = ck.siso_cells(*cur, la, K, mode, scale, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if nii:
+            want = ck.siso_bnd_nii_plain(*cur, la, tbl, a_edge, b_edge, K, W,
+                                         scale, qs, mode, row_offset=j * C)
+        else:
+            want = ck.siso_bnd_exact_plain(*cur, la, a_edge, b_edge, K, W,
+                                           scale, qs, mode, row_offset=j * C)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        outs = ("le", "aout", "eout", "bout") if nii else ("le", "aout",
+                                                           "bout")
+        errs, same = {}, True
+        for key, a, b in zip(outs, got, want):
+            if key == "aout" and nii:
+                a, b = a[1:], b[1:]     # slot 0 is never written
+            errs[key] = max_diff(a, b)
+            same = same and torch.equal(a, b)
+        name = ck.kernel_name(nii, mode, bnd=True)
+        if not same:
+            raise AssertionError(
+                f"{name} differs from its plain version at K={K} C={C} "
+                f"W={W} B={B} offset={j * C} {chan}+{ext}: {errs}")
+        case = {"name": name, "K": K, "C": C, "W": W, "B": B,
+                "row_offset": j * C, "segments": C // ck.exact_segment(
+                    W if nii else C), "chan": chan, "ext": ext, **errs}
+        call = (lambda: ck.siso_cells(*cur, la, K, mode, scale, **kw))
+        return case, (cur, la, K, mode, scale, kw), call, plain_s
+
+    cases, other_shapes = [], []
     K, B = C5_K, C5_B
-    cases = []
     for nii, window in ((False, 0), (True, 256)):
         C, W, n_win, KTp = chunk_sizing(K + 3, 2, window)
         ls1, lp1, _, _ = make_streams(inputs, K, W, bf16, dev, KTp=KTp)
-        first, last = (ls1[:C], lp1[:C]), (ls1[C:2 * C], lp1[C:2 * C])
-        uni = torch.zeros((8, B), dtype=f32, device=dev)
-        e0 = ck._e0(B, dev)
-        zE = torch.zeros((C, B), dtype=bf16, device=dev)
         for mode in MODES:
-            scale = 0.75 if mode == "maxlog" else 1.0
-            tol = TOLERANCE[mode]
             name = ck.kernel_name(nii, mode, bnd=True)
-            _, a_edge, _ = ck.siso_cells(*first, zE, K, mode, scale,
-                                         boundaries=(e0, uni), window=W)
-            la, _, b_edge = ck.siso_cells(*last, zE, K, mode, scale,
-                                          boundaries=(uni, uni), window=W,
-                                          row_offset=C)
-            if nii:
-                tbl = ck.siso_cells(*last, zE, K, mode, scale, window=W,
-                                    nii_boundaries=(torch.zeros(
-                                        (n_win, 8, B), device=dev), uni, uni),
-                                    row_offset=C)[1]
-                kw = dict(nii_boundaries=(tbl, a_edge, b_edge))
-            else:
-                kw = dict(boundaries=(a_edge, b_edge))
-            got = ck.siso_cells(*last, la, K, mode, scale, window=W,
-                                row_offset=C, **kw)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            if nii:
-                want = ck.siso_bnd_nii_plain(*last, la, tbl, a_edge, b_edge,
-                                             K, W, scale, 0.0, mode,
-                                             row_offset=C)
-            else:
-                want = ck.siso_bnd_exact_plain(*last, la, a_edge, b_edge, K,
-                                               W, scale, 0.0, mode,
-                                               row_offset=C)
-            torch.cuda.synchronize()
-            plain_s = time.perf_counter() - t0
-            errs = {}
-            e_le, le_tol = le_error(got[0], want[0], tol)
-            errs["le"] = e_le
-            outs = ("aout", "eout", "bout") if nii else ("aout", "bout")
-            for key, a, b in zip(outs, got[1:], want[1:]):
-                if key == "aout" and nii:
-                    a, b = a[1:], b[1:]     # slot 0 is never written
-                errs[key] = float((a - b).abs().max()) if a.numel() else 0.0
-            if not (all(np.isfinite(v) for v in errs.values())
-                    and e_le <= le_tol
-                    and all(v <= tol for k, v in errs.items() if k != "le")):
-                raise AssertionError(f"{name} disagrees with its plain "
-                                     f"version at C={C} W={W} B={B}: {errs}")
+            case, args, call, plain_s = compare(nii, mode, ls1, lp1, K, 2,
+                                                window, "bfloat16", "bfloat16")
+            cases.append(case)
+            results[name]["max_abs_err"] = max(
+                results[name].get("max_abs_err", 0.0),
+                *(v for k, v in case.items() if k in ("le", "aout", "eout",
+                                                      "bout")))
             bound, by = siso_bound_ms(C, B, n_win, 2, 2, nii, False, mode,
                                       bnd=True)
             results[name].update(
-                max_abs_err=max(errs.values()),
-                ms=time_launches(lambda: ck.siso_cells(
-                    *last, la, K, mode, scale, window=W, row_offset=C, **kw),
-                    10),
-                plain_ms=plain_s * 1e3, bound_ms=bound, bound_by=by,
+                ms=time_launches(call, 10), plain_ms=plain_s * 1e3,
+                bound_ms=bound, bound_by=by,
                 shape={"K": K, "C": C, "W": W, "B": B, "chan": "bfloat16",
                        "ext": "bfloat16", "row_offset": C})
-            cases.append({"name": name, "C": C, "W": W, **errs})
+            if mode == "maxlog":
+                cur, la, K_, mode_, scale, kw = args
+                p1, p2 = ck.pass_launchers(*cur, la, K_, mode_, scale, **kw)
+                results[name]["pass_ms"] = {"pass1": time_launches(p1, 10),
+                                            "pass2": time_launches(p2, 10)}
+    # the last chunk of seq=4, max-log exact
+    C, W, n_win, KTp = chunk_sizing(K + 3, 4)
+    ls1, lp1, _, _ = make_streams(inputs, K, W, bf16, dev, KTp=KTp)
+    case, _, call, plain_s = compare(False, "maxlog", ls1, lp1, K, 4, 0,
+                                     "bfloat16", "bfloat16")
+    cases.append(case)
+    bound, by = siso_bound_ms(C, B, n_win, 2, 2, False, False, bnd=True)
+    other_shapes.append({**case, "ms": time_launches(call, 10),
+                         "plain_ms": plain_s * 1e3, "bound_ms": bound,
+                         "bound_by": by})
+    # small shapes, every mode and stream pair, both contracts
+    for K_s, B_s in ((168, 70), (120, 37)):
+        C, W, n_win, KTp = chunk_sizing(K_s + 3, 2)
+        small = make_decode_inputs(K_s, B_s, seed=13, ebn0_db=1.0)
+        for chan, ext in (("bfloat16", "int8"), ("bfloat16", "bfloat16"),
+                          ("float32", "float32")):
+            ls1, lp1, _, _ = make_streams(small, K_s, W, types[chan], dev,
+                                          KTp=KTp)
+            for mode in MODES:
+                for nii in (False, True):
+                    for j in (0, 1):
+                        case = compare(nii, mode, ls1, lp1, K_s, 2, 0, chan,
+                                       ext, j)[0]
+                        cases.append(case)
+                        name = case["name"]
+                        results[name]["max_abs_err"] = max(
+                            results[name].get("max_abs_err", 0.0),
+                            *(v for k, v in case.items()
+                              if k in ("le", "aout", "eout", "bout")))
 
     # e0 edges, offset 0, the whole trellis: the exact and NII kernels
     K, W = flagship_config().K, flagship_config().window
@@ -1094,7 +1117,13 @@ def check_k4(dev, results, inputs):
                 raise AssertionError(f"the e0 identities fail for {mode} "
                                      f"with {ext} extrinsics")
             identities.append(f"{mode}+{str(ext)[6:]}")
-    return {"cases": cases, "e0_identities_bit_equal": identities}
+    return {"cases": cases, "other_shapes": other_shapes,
+            "e0_identities_bit_equal": identities,
+            "kernels": {ck.kernel_name(nii, mode, bnd=True): {
+                k: results[ck.kernel_name(nii, mode, bnd=True)].get(k)
+                for k in ("max_abs_err", "ms", "pass_ms", "plain_ms",
+                          "bound_ms", "bound_by")}
+                for mode in MODES for nii in ck.BND_CONTRACTS}}
 
 
 def check_seq(dev, card, results):

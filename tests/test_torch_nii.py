@@ -13,8 +13,9 @@ renorm edge of the window's walk.  The kernel cannot run here.
 same step functions, and it must equal `siso_nii_plain` (the serial schedule,
 which the Pallas kernel is held to in tests/test_torch_siso.py and the CUDA
 kernel on the card) bit for bit in le and aout[1:], in every mode and stream
-type.  On one shape the Pallas kernel in interpret mode is held to the
-rendering directly.
+type, and with the folded read of K5 (`gather_idx`) to
+`siso_nii_plain(..., gather_idx=)`.  On one shape the Pallas kernel in
+interpret mode is held to the rendering directly.
 """
 
 import numpy as np
@@ -27,18 +28,21 @@ from turbotpu.siso import pallas_kernel as jk
 from turbotpu_torch import convert
 from turbotpu_torch.harness.bench import make_decode_inputs
 from turbotpu_torch.siso import cuda_kernel as ck
+from turbotpu_torch.spec.qpp import qpp_perm
 
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16,
             "int8": torch.int8}
 U = ck.UNROLL
 
 
-def _nii_window_parallel(ls, lp, la, ain, K_real, W, seg, scale, qs, mode):
+def _nii_window_parallel(ls, lp, la, ain, K_real, W, seg, scale, qs, mode,
+                         gather_idx=None):
     """The NII contract in the kernel's window-parallel schedule, segments
-    of `seg` steps (a multiple of 8 that divides W).  Returns (le, aout);
-    aout[0] is zero, as the kernel leaves it unwritten.  Every recursion runs
-    on (8, B) tensors, as in the serial plain version, so the elementwise
-    functions see the same shapes."""
+    of `seg` steps (a multiple of 8 that divides W).  With gather_idx (K5,
+    the folded read) the a-priori row of step t is row gather_idx[t] of la.
+    Returns (le, aout); aout[0] is zero, as the kernel leaves it unwritten.
+    Every recursion runs on (8, B) tensors, as in the serial plain version,
+    so the elementwise functions see the same shapes."""
     T, B = ls.shape
     n_win, n_seg, nsub = T // W, T // seg, seg // U
     assert W % seg == 0 and seg % U == 0
@@ -47,7 +51,8 @@ def _nii_window_parallel(ls, lp, la, ain, K_real, W, seg, scale, qs, mode):
     eff = scale * (qs if qs else 1.0)
     sm = torch.where(torch.arange(T) < K_real, torch.tensor(eff, dtype=f32),
                      torch.zeros((), dtype=f32))[:, None]
-    A = -(la.to(f32) * sm + ls.to(f32))
+    rows = la if gather_idx is None else la[gather_idx.long()]
+    A = -(rows.to(f32) * sm + ls.to(f32))
     P = -lp.to(f32)
     G = torch.stack([torch.zeros_like(P), P, A, A + P], dim=1)
     e0 = ck._e0(B, ls.device)
@@ -168,6 +173,33 @@ def test_window_parallel_schedule_edge_shapes(mode, K, W, K_real, B, chan,
                                                K_real)
     assert (ls.shape[0] == W) == (K == 40)
     _assert_schedule_equal(ls, lp, la, ain, K_real, W, segs, scale, qs, mode)
+
+
+@pytest.mark.parametrize("mode", ["maxlog", "linlog", "logmap"])
+@pytest.mark.parametrize("table", ["qpp", "random"])
+def test_window_parallel_schedule_folded_read(mode, table):
+    """K5: the folded read (la row t from row idx[t]) in the same schedule
+    equals `siso_nii_plain(..., gather_idx=)` bit for bit in le and
+    aout[1:], through the QPP table extended over the tail and pad rows and
+    through a random permutation of all rows, K=168 in windows of 32, B=6
+    (not a multiple of 4), bf16 channel and int8 extrinsic streams."""
+    W, B = 32, 6
+    ls, lp, la, ain, K, scale, qs = _case(168, W, B, "bfloat16", "int8", 34,
+                                          mode)
+    T = ls.shape[0]
+    idx = (np.concatenate([qpp_perm(K), np.arange(K, T)]) if table == "qpp"
+           else np.random.default_rng(35).permutation(T))
+    idx = torch.from_numpy(idx.astype(np.int32))
+    le_p, aout_p = ck.siso_nii_plain(ls, lp, la, ain, K, W, scale, qs, mode,
+                                     gather_idx=idx)
+    for seg in (8, ck.exact_segment(W)):
+        le, aout = _nii_window_parallel(ls, lp, la, ain, K, W, seg, scale, qs,
+                                        mode, gather_idx=idx)
+        assert torch.equal(le, le_p), seg
+        assert torch.equal(aout[1:], aout_p[1:]), seg
+    # the read is really folded: in order, the rows give another result
+    assert not torch.equal(le_p, ck.siso_nii_plain(ls, lp, la, ain, K, W,
+                                                   scale, qs, mode)[0])
 
 
 def test_pallas_interpret_equals_the_window_parallel_schedule():

@@ -3,47 +3,39 @@
 //
 // Replaces the TPU kernel turbotpu/siso/pallas_kernel.py::_make_kernel (built
 // there by _build_call), with the max* of _mstar/_mstar_tree and the per-leaf
-// _extrinsic of the same file, in its two non-boundary contracts:
+// _extrinsic of the same file, in its two contracts:
 //   NII   (nii=True):  window-start alphas come from the previous
 //                      half-iteration (ain), fresh ones go out (aout);
 //   exact (nii=False): no approximation: every window starts from the true
 //                      alpha and beta at its edges.
 // Both emit the extrinsic
 //   Le = max*(u=0 edges) - max*(u=1 edges)
-// from alpha before each step and beta after it.  Both run window-parallel
-// on the same two passes (nii_pass1/exact_pass1, then exact_pass2, with their
-// own note below): the contracts differ only in where alpha comes from.  Beta
-// is exact in both: it runs continuously backward from e0 at the padded
-// trellis end through every window.
-// The serial schedule (siso_kernel: one thread per codeword walks the windows
-// backward, recomputing alpha through each into a scratch and running beta
-// down it) remains for two forms, each a library of its own:
-// K4, the boundary contracts of the same function (boundary=True, with and
-// without nii, with_offset; consumed by the sequence-sharded decoder): the
-// trellis is one chunk of a longer one, so the recursions start from edge
-// metrics the caller passes in and the edges at the chunk's ends go out:
-//   exact + boundary: phase 1 starts from a0, and alpha at the chunk end goes
-//                     out; beta starts from bT, and beta at the chunk start
-//                     goes out;
+// from alpha before each step and beta after it.  Beta is exact in both: it
+// runs continuously backward through every window.  Two more forms of the
+// same function are libraries of their own, so that a decode without them
+// never compiles them:
+// K4 (-DSISO_BND=1), the boundary contracts (boundary=True, with and without
+// nii, with_offset; consumed by the sequence-sharded decoder): the trellis is
+// one chunk of a longer one, so the recursions start from edge metrics the
+// caller passes in and the edges at the chunk's ends go out:
+//   exact + boundary: alpha starts from a0 at the chunk start, and alpha at
+//                     the chunk end goes out; beta starts from bT at the
+//                     chunk end, and beta at the chunk start goes out;
 //   NII + boundary:   window 0 starts from the received edge_in; the last
 //                     window's end alpha goes out as eout, beside the
 //                     shifted-slot writes of the window table; beta as above.
 // The a-priori mask is on the global row off + t < K, with K the global info
-// length and off the chunk's first row.  A compile-time BND of the kernel,
-// built as a library of its own (-DSISO_BND=1), so a decode without the
-// sequence path never compiles it; with a0 = bT = edge_in = e0 and off = 0
-// the boundary forms equal the exact and NII kernels bit for bit.  They add
-// four edge pointers and an offset and no work per step, so they are bound
-// as the serial kernel is (below), over the chunk's C steps: at the sequence
-// path's batch (4096 codewords = 128 warps, about one per SM) by one warp's
-// dependent chain.
-// K5, a third form of the NII contract, folds the extrinsic interleave into
-// the kernel (the reference's fold_gather=True call, pallas_call at :570 of
-// the same file): the a-priori row of step t is read from row idx[t] of the
-// OTHER SISO's raw output, through a (T,) int32 table shared by the batch,
-// so the decoder runs no gather between the two half-iterations.  Everything
-// after the read is the serial NII code, so its outputs equal the NII
-// kernel's on a materialised gather bit for bit (-DSISO_FOLD=1).
+// length and off the chunk's first row: t < K - off on the chunk's rows.
+// With a0 = bT = edge_in = e0 and off = 0 the boundary forms equal the exact
+// and NII kernels bit for bit.
+// K5 (-DSISO_FOLD=1), the NII contract with the extrinsic interleave folded
+// into the kernel (the reference's fold_gather=True call, pallas_call at :570
+// of the same file): the a-priori row of step t is read from row idx[t] of
+// the OTHER SISO's raw output, through a (T,) int32 table shared by the
+// batch, so the decoder runs no gather between the two half-iterations.
+// Everything after the read is the NII code, so its outputs equal the NII
+// kernel's on a materialised gather bit for bit.
+// All forms run on the same two window-parallel passes (their note below).
 // The mode is a compile-time parameter:
 //   max-log  max*(a, b) = max(a, b); the parity add is factored out of the
 //            extrinsic's reduction (exact there: rounding is monotone);
@@ -51,42 +43,20 @@
 //   log-MAP  max(a, b) + log1p(exp(-|a - b|)), full-precision libm.
 // linlog's clipped correction depends on the order of the reduction, so
 // linlog and log-MAP reduce the extrinsic's 8 leaves per input bit, parity
-// added per leaf, as a balanced pairwise tree in state order.
+// added per leaf, as a balanced pairwise tree in state order.  The
+// corrections multiply the instructions per step (linlog about 2.5x max-log,
+// log-MAP two libm calls per max*) on the same dependent chain.
 //
 // Layout: every stream is time-major (T, B): element (t, b) at t*B + b, so
 // the 32 codewords of a warp read 32 neighbouring values at each step.  That
-// also holds for the folded read: row idx[t] is B contiguous values, the
-// index is the same for the whole warp, and the warp reads one 32-byte (int8)
-// to 128-byte (fp32) piece of it.  The reference issues one DMA per row for
-// this; here it is an indexed load.  The index sits on the load's address
-// chain (index load, 64-bit multiply-add, stream load), which the prefetch of
-// a block of rows one block ahead has to absorb; the table is read through
-// the read-only path from global memory (25.6 KB at T=6400: it stays in L1).
-// A first version that copied the table to shared memory once per block
-// measured about 3% slower than this plain form, at 1024 and at 16384
-// codewords.
-// Window tables (ain, aout) are (n_win, 8, B) fp32.  The serial kernel's
-// alpha window scratch is (W, 8, B) fp32.  One thread decodes one codeword
-// and keeps the 8 state metrics in registers; the trellis permutation is
-// register renaming in the unrolled step.  No kernel allocates: the wrapper
-// passes the scratch.
-//
-// Bound of the serial kernel (K4, K5): at the decoder's batch (1024
-// codewords = 32 warps) the card is mostly empty, and the kernel is bound by
-// latency, not by bytes (about 6 B per step and codeword) or by fp32 issue:
-// one warp's dependent add/max chain over 2 x KTp steps (NII; 3 x KTp for the
-// exact boundary form), plus every load it has to wait for.  What the design
-// does about it: blocks are one warp wide so the codewords spread over as
-// many SMs as possible, and streams and stored alphas are fetched a block of
-// 8 steps at a time, one block ahead of the arithmetic, into a second set of
-// registers (the two sets swap roles in a loop unrolled by two).  That
-// prefetch is waited on in full (see cp_async below); the window-parallel
-// passes are the way out, and K4 and K5 are next to take them.
-//
-// The corrections multiply the arithmetic per step (linlog about 2.5x the
-// instructions of max-log, log-MAP two libm calls per max*) on the same
-// dependent chain, so these modes are bound by issue and latency all the
-// more; the memory side is unchanged.
+// also holds for the folded read: row idx[t] is B contiguous values, and the
+// index is the same for every codeword.  The reference issues one DMA per
+// row for this; here it is an indexed load whose index sits on the load's
+// address chain (index load, 64-bit multiply-add, stream load): pass 1 loads
+// the index one block ahead of the copy that uses it, and the table (25.6 KB
+// at T=6400) stays in L1.  Window tables (ain, aout) and edges are fp32,
+// (n_win, 8, B) and (8, B).  No kernel allocates: the wrapper passes the
+// scratch.
 //
 // Arithmetic is kept in the reference's order so results agree bit for bit:
 // explicit __fadd_rn/__fmul_rn (no FMA contraction), renormalisation by the
@@ -108,6 +78,9 @@
 #endif
 
 namespace {
+
+// the library's form (see the entry point at the end)
+constexpr bool FOLD = SISO_FOLD != 0, BND = SISO_BND != 0;
 
 constexpr int UNROLL = 8;    // steps per block; also the renorm cadence
 constexpr float BIG = 1e9f;  // e0 = (0, -BIG x 7)
@@ -265,9 +238,8 @@ struct Rows {
   TE la[UNROLL];
 };
 
-// FOLD: la row t is read from row rows[t] (the gather table) instead of
-// row t.
-template <typename TC, typename TE, bool FOLD>
+// In a FOLD library la row t is read from row rows[t] (the gather table).
+template <typename TC, typename TE>
 struct Streams {
   const TC* __restrict__ ls;
   const TC* __restrict__ lp;
@@ -303,66 +275,22 @@ struct Streams {
 };
 
 // UNROLL forward steps from t0 on the rows in `cur`, after starting the
-// fetch of the next block into `nxt`.  With aw != nullptr the alpha before
-// each step goes to the window scratch (row t0 - window start = tw).
-template <int MODE, typename TC, typename TE, bool FOLD>
-__device__ __forceinline__ void alpha_block(
-    const Streams<TC, TE, FOLD>& st, int t0, bool more,
-    const Rows<TC, TE>& cur, Rows<TC, TE>& nxt, float (&alpha)[8], float* aw,
-    int tw) {
+// fetch of the next block into `nxt`, then the renorm.
+template <int MODE, typename TC, typename TE>
+__device__ __forceinline__ void alpha_block(const Streams<TC, TE>& st, int t0,
+                                            bool more, const Rows<TC, TE>& cur,
+                                            Rows<TC, TE>& nxt,
+                                            float (&alpha)[8]) {
   float A[UNROLL], P[UNROLL];
   st.metrics(cur, t0, A, P);
   if (more) st.fetch(t0 + UNROLL, nxt);
 #pragma unroll
-  for (int j = 0; j < UNROLL; ++j) {
-    if (aw != nullptr) {
-#pragma unroll
-      for (int s = 0; s < 8; ++s)
-        aw[((int64_t)(tw + j) * 8 + s) * st.B + st.b] = alpha[s];
-    }
-    alpha_step<MODE>(alpha, A[j], P[j]);
-  }
+  for (int j = 0; j < UNROLL; ++j) alpha_step<MODE>(alpha, A[j], P[j]);
   renorm(alpha);
 }
 
-// The window scratch is written and read back by the same thread within one
-// launch: its pointer is never declared read-only.
-__device__ __forceinline__ void fetch_alphas(const float* aw, int64_t B,
-                                             int64_t b, int tw,
-                                             float (&at)[UNROLL][8]) {
-#pragma unroll
-  for (int j = 0; j < UNROLL; ++j)
-#pragma unroll
-    for (int s = 0; s < 8; ++s)
-      at[j][s] = aw[((int64_t)(tw + j) * 8 + s) * B + b];
-}
-
-// UNROLL backward steps over the block at t0 (window row tw): emit Le from
-// the stored alphas and the running beta, then step beta.  The next block
-// down (t0 - UNROLL) is fetched first.
-template <int MODE, typename TC, typename TE, bool FOLD>
-__device__ __forceinline__ void beta_block(
-    const Streams<TC, TE, FOLD>& st, int t0, int tw, bool more,
-    const Rows<TC, TE>& cur, const float (&at)[UNROLL][8],
-    Rows<TC, TE>& nxt, float (&atn)[UNROLL][8], float (&beta)[8],
-    const float* aw, TE* __restrict__ le, float inv_q) {
-  float A[UNROLL], P[UNROLL];
-  st.metrics(cur, t0, A, P);
-  if (more) {
-    st.fetch(t0 - UNROLL, nxt);
-    fetch_alphas(aw, st.B, st.b, tw - UNROLL, atn);
-  }
-#pragma unroll
-  for (int j = UNROLL - 1; j >= 0; --j) {
-    st_le(le + (int64_t)(t0 + j) * st.B + st.b,
-          extrinsic<MODE>(at[j], beta, P[j]), inv_q);
-    beta_step<MODE>(beta, A[j], P[j]);
-  }
-  renorm(beta);
-}
-
 // K4's boundary operands, (8, B) fp32 each (state s of codeword b at
-// s*B + b); null outside the BND instantiations, which alone read them.
+// s*B + b); null outside a BND library, which alone reads them.
 struct Edges {
   const float* a_in;  // exact: alpha at the chunk start (a0);
                       // NII: window 0's start (edge_in)
@@ -384,115 +312,30 @@ __device__ __forceinline__ void store_edge(float* e, const float (&m)[8],
   for (int s = 0; s < 8; ++s) e[s * B + b] = m[s];
 }
 
-template <typename TC, typename TE, bool NII, int MODE, bool FOLD, bool BND>
-__global__ void siso_kernel(
-    const TC* __restrict__ ls, const TC* __restrict__ lp,
-    const TE* __restrict__ la, const int* __restrict__ idx,
-    TE* __restrict__ le, const float* __restrict__ ain,
-    float* __restrict__ aout, float* __restrict__ aw,
-    float* __restrict__ ckpt, int B_, int K, int n_win, int W, float eff,
-    float inv_q, Edges e) {
-  static_assert(NII || !FOLD, "the folded read exists for the NII contract");
-  static_assert(!(FOLD && BND), "the folded read has no boundary form");
-  const int64_t B = B_;
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  // BND: the mask off + t < K is t < K - off on the chunk's own rows.
-  const Streams<TC, TE, FOLD> st{ls, lp, la, idx, B, b, BND ? K - e.off : K,
-                                 eff};
-  const int T = n_win * W;
-  Rows<TC, TE> r0, r1;
-
-  if (!NII) {
-    // Phase 1: forward alpha over the whole trellis, one checkpoint per
-    // window start.
-    float alpha[8];
-    if (BND) load_edge(alpha, e.a_in, B, b); else init_e0(alpha);
-    st.fetch(0, r0);
-    for (int t0 = 0; t0 < T; t0 += 2 * UNROLL) {
-      if (t0 % W == 0) {
-#pragma unroll
-        for (int s = 0; s < 8; ++s)
-          ckpt[((int64_t)(t0 / W) * 8 + s) * B + b] = alpha[s];
-      }
-      alpha_block<MODE>(st, t0, t0 + UNROLL < T, r0, r1, alpha, nullptr, 0);
-      const int t1 = t0 + UNROLL;
-      if (t1 < T) {
-        if (t1 % W == 0) {
-#pragma unroll
-          for (int s = 0; s < 8; ++s)
-            ckpt[((int64_t)(t1 / W) * 8 + s) * B + b] = alpha[s];
-        }
-        alpha_block<MODE>(st, t1, t1 + UNROLL < T, r1, r0, alpha, nullptr, 0);
-      }
-    }
-    if (BND) store_edge(e.a_out, alpha, B, b);  // alpha at the chunk end
-  }
-
-  // Phase 2: windows backward; recompute alpha, run beta, emit Le.
-  float beta[8];
-  if (BND) load_edge(beta, e.b_in, B, b); else init_e0(beta);
-  for (int w = n_win - 1; w >= 0; --w) {
-    const int base = w * W;
-    st.fetch(base, r0);
-    float alpha[8];
-    if (NII) {
-      if (w == 0) {
-        if (BND) load_edge(alpha, e.a_in, B, b); else init_e0(alpha);
-      } else {
-#pragma unroll
-        for (int s = 0; s < 8; ++s) alpha[s] = ain[((int64_t)w * 8 + s) * B + b];
-      }
-    } else {
-#pragma unroll
-      for (int s = 0; s < 8; ++s) alpha[s] = ckpt[((int64_t)w * 8 + s) * B + b];
-    }
-
-    for (int tw = 0; tw < W; tw += 2 * UNROLL) {
-      alpha_block<MODE>(st, base + tw, tw + UNROLL < W, r0, r1, alpha, aw,
-                        tw);
-      if (tw + UNROLL < W)
-        alpha_block<MODE>(st, base + tw + UNROLL, tw + 2 * UNROLL < W, r1, r0,
-                          alpha, aw, tw + UNROLL);
-    }
-    if (NII && w + 1 < n_win) {
-#pragma unroll
-      for (int s = 0; s < 8; ++s)
-        aout[((int64_t)(w + 1) * 8 + s) * B + b] = alpha[s];
-    }
-    // the last window's end is the outgoing chunk edge
-    if (NII && BND && w == n_win - 1) store_edge(e.a_out, alpha, B, b);
-
-    float a0[UNROLL][8], a1[UNROLL][8];
-    st.fetch(base + W - UNROLL, r0);
-    fetch_alphas(aw, B, b, W - UNROLL, a0);
-    for (int tw = W - UNROLL; tw >= 0; tw -= 2 * UNROLL) {
-      beta_block<MODE>(st, base + tw, tw, tw > 0, r0, a0, r1, a1, beta, aw, le,
-                       inv_q);
-      if (tw > 0)
-        beta_block<MODE>(st, base + tw - UNROLL, tw - UNROLL, tw > UNROLL, r1,
-                         a1, r0, a0, beta, aw, le, inv_q);
-    }
-  }
-  if (BND) store_edge(e.b_out, beta, B, b);  // beta at the chunk start
+// alpha at t = 0 (a_in in a BND library) or beta at T (b_in)
+__device__ __forceinline__ void start_edge(float (&m)[8], const float* e,
+                                           int64_t B, int64_t b) {
+  if (BND) load_edge(m, e, B, b); else init_e0(m);
 }
 
-// ---- the window-parallel passes (K2, K1 and K3's rows of both) ----------
+// ---- the window-parallel passes ------------------------------------------
 //
-// The serial schedule walks the trellis three times (exact) or twice (NII)
-// in one thread per codeword.  Both contracts' outputs depend only on alpha
-// and beta at each step.  Beta is, in both, a plain recursion from e0 at T
-// with a renorm after every 8-step block (blocks aligned at multiples of 8
-// from t = 0).  Alpha is one too in the exact contract, from e0 at t = 0; in
-// the NII contract it restarts at every window start w*W from ain[w] (e0 for
-// window 0), renormalised every 8 steps from that start.  So the trellis is
-// cut into segments of seg steps (a power of two up to 64, a multiple of 8;
-// for NII one that divides the window W, so every segment edge is an 8-step
-// renorm edge of the window walk too; for exact any multiple of 8 gives the
-// same values, since every segment edge is a block edge), and:
-//   pass 1, beta: beta runs backward from e0 at T down to row seg and writes
-//           beta at each segment end (bck[j], the beta entering segment j
-//           from above, j <= n_seg-2), T - seg dependent steps.  A
+// Every contract's outputs depend only on alpha and beta at each step.  Beta
+// is a plain recursion from its edge at T (e0, or b_in) with a renorm after
+// every 8-step block (blocks aligned at multiples of 8 from t = 0).  Alpha
+// is one too in the exact contract, from its edge at t = 0 (e0, or a_in); in
+// the NII contract it restarts at every window start w*W from ain[w] (window
+// 0 from e0, or edge_in), renormalised every 8 steps from that start.  The
+// serial schedule (one thread per codeword walking the windows backward, as
+// the plain versions in siso/cuda_kernel.py do) walks the trellis three
+// times (exact) or twice (NII).  Here the trellis is cut into segments of
+// seg steps (a power of two up to 64, a multiple of 8; for NII one that
+// divides the window W, so every segment edge is an 8-step renorm edge of
+// the window walk too; for exact any multiple of 8 gives the same values,
+// since every segment edge is a block edge), and:
+//   pass 1, beta: beta runs backward from its edge at T down to row seg and
+//           writes beta at each segment end (bck[j], the beta entering
+//           segment j from above, j <= n_seg-2), T - seg dependent steps.  A
 //           codeword's 8 states sit on 8 lanes: each lane does its state's
 //           step on two metrics shuffled in from the lanes of the successor
 //           states, which cuts the dependent chain of a step to a shuffle,
@@ -502,10 +345,10 @@ __global__ void siso_kernel(
 //           8-step block are staged PASS1_DEPTH - 1 blocks ahead (cp.async
 //           into a ring of tiles in shared memory; register loads where
 //           B % 4 != 0); lane s forms row s's A and P, and the 8 lanes
-//           exchange them.
+//           exchange them.  The folded read (K5) stages row idx[t] of la.
 //   pass 1, alpha (exact_pass1, other blockIdx.y): the same walk forward
-//           from e0 over segments 0..n_seg-2, writing alpha at each segment
-//           start (ack[j], j >= 1).
+//           from its edge over segments 0..n_seg-2, writing alpha at each
+//           segment start (ack[j], j >= 1).
 //   pass 1, alpha (nii_pass1, blocks after the beta walk's, one launch): one
 //           thread per (window, codeword) walks alpha over its window's W
 //           steps from ain[w], writes alpha at each segment start inside the
@@ -515,23 +358,30 @@ __global__ void siso_kernel(
 //           beta walk sets the pass's time.
 //   pass 2 (exact_pass2, both contracts): one thread per (segment,
 //           codeword) decodes its segment alone: alpha forward from ack[j]
-//           (e0 for segment 0), keeping alpha at each 8-step block start in
-//           shared memory (seg / 8 x 8 fp32 a thread); then block by block
-//           backward, alpha recomputed over the block from its
-//           sub-checkpoint into registers, and beta from bck[j] (e0 for the
-//           last segment) steps down the block emitting Le.
+//           (the alpha edge for segment 0), keeping alpha at each 8-step
+//           block start in shared memory (seg / 8 x 8 fp32 a thread); then
+//           block by block backward, alpha recomputed over the block from
+//           its sub-checkpoint into registers, and beta from bck[j] (the
+//           beta edge for the last segment) steps down the block emitting
+//           Le.  In a BND library the thread of segment 0 writes its beta
+//           at row 0 (b_out), and the thread of the last segment runs alpha
+//           over its last block too and writes alpha at the chunk end
+//           (a_out: the exact contract's chunk end, the NII contract's last
+//           window end).  The edges come from pass 2 because a chunk of one
+//           segment has no pass 1.
 // Every value is produced by the same step functions on the same operands in
-// the same order as the serial schedule (the renorm's max over 8 lanes is a
-// tree, which is exact for fmaxf), so Le and aout are equal bit for bit.
-// The critical path is T - seg + 3 seg steps (one warp's beta walk, then one
-// segment) instead of 3T (exact) or 2T (NII); the segment alphas never leave
-// the SM, and at the decoder's batch pass 2 has n_seg x B independent threads
-// (100 x 1024 at the flagship shape).
-// Bound: as the serial kernel, latency and not bytes or issue at the
-// decoder's batch; pass 1's beta walk, a chain of a shuffle, an add and a
-// max* per step and three shuffle-max levels per renorm, is the critical
-// path, and it is the same walk in both contracts: the NII contract saves
-// the forward walk's instructions, not its time.
+// the same order as in the serial schedule (the renorm's max over 8 lanes is a
+// tree, which is exact for fmaxf), so Le, aout and the outgoing edges are
+// equal to it bit for bit.  The critical path is T - seg + 3 seg steps (one
+// warp's beta walk, then one segment) instead of 3T (exact) or 2T (NII); the
+// segment alphas never leave the SM, and pass 2 has n_seg x B independent
+// threads (100 x 1024 at the flagship shape, 50 x 4096 at the sequence
+// path's chunk).
+// Bound: latency, not bytes (about 6 B per step and codeword) or issue at
+// the decoders' batches: pass 1's beta walk, a chain of a shuffle, an add
+// and a max* per step and three shuffle-max levels per renorm, is the
+// critical path, and it is the same walk in every contract: the NII
+// contract saves the forward walk's instructions, not its time.
 constexpr int EXACT_THREADS = 32;  // pass 1 and pass 2 blocks: one warp
 constexpr int PASS1_CW = EXACT_THREADS / 8;  // pass 1: codewords per warp
 constexpr int PASS1_DEPTH = 8;     // row blocks in flight in pass 1
@@ -598,21 +448,23 @@ __device__ __forceinline__ float renorm8(float m) {
   return __fsub_rn(m, mx);
 }
 
-// One walk of pass 1 for the lane's (codeword b, state s).  Block i covers
-// rows i*8.. (forward) or T - (i+1)*8.. (backward), fetched PASS1_DEPTH - 1
-// blocks ahead of the arithmetic.  STAGED (B % 4 == 0, aligned streams): 24
-// lanes each copy one row of one stream for the warp's 4 codewords into a
-// ring of tiles in shared memory; otherwise lane s loads row s of each
-// stream into registers.  Lane s forms row s's A and P, and the 8 lanes of
-// the codeword exchange them.  (Doing that for block i + 1 before block i's
-// steps, to overlap their chain, measured 15-30% slower on an H100.)
+// One walk of pass 1 for the lane's (codeword b, state s), from the edge
+// `edge` (BND) or e0.  Block i covers rows i*8.. (forward) or
+// T - (i+1)*8.. (backward), fetched PASS1_DEPTH - 1 blocks ahead of the
+// arithmetic.  STAGED (B % 4 == 0, aligned streams): 24 lanes each copy one
+// row of one stream for the warp's 4 codewords into a ring of tiles in
+// shared memory; otherwise lane s loads row s of each stream into
+// registers.  Lane s forms row s's A and P, and the 8 lanes of the codeword
+// exchange them.  (Doing that for block i + 1 before block i's steps, to
+// overlap their chain, measured 15-30% slower on an H100.)
 template <int MODE, bool FWD, bool STAGED, typename TC, typename TE>
 __device__ __forceinline__ void walk(const TC* __restrict__ ls,
                                      const TC* __restrict__ lp,
-                                     const TE* __restrict__ la, float* ck,
-                                     int64_t B, int64_t b, bool live, int K,
-                                     int n_win, int W, float eff,
-                                     Tile<TC, TE>* tiles) {
+                                     const TE* __restrict__ la,
+                                     const int* __restrict__ rows,
+                                     const float* edge, float* ck, int64_t B,
+                                     int64_t b, bool live, int K, int n_win,
+                                     int W, float eff, Tile<TC, TE>* tiles) {
   const int lane = threadIdx.x, s = lane & 7, g = lane & ~7, c = lane >> 3;
   const int src0 = g | (FWD ? t_prev(s, 0) : t_next(s, 0));
   const int src1 = g | (FWD ? t_prev(s, 1) : t_next(s, 1));
@@ -623,14 +475,24 @@ __device__ __forceinline__ void walk(const TC* __restrict__ ls,
   auto row0 = [&](int i) { return FWD ? i * UNROLL : T - (i + 1) * UNROLL; };
   TC rls[PASS1_DEPTH], rlp[PASS1_DEPTH];
   TE rla[PASS1_DEPTH];
+  // FOLD: the la row of the next fetch's row s, loaded one fetch ahead
+  // (fetch is called for i = 0, 1, 2, ... in turn)
+  int src = FOLD ? rows[row0(0) + s] : 0;
   // block i into slot d (a group of copies, committed even when empty)
   auto fetch = [&](int i, int d) {
+    int64_t ra = 0;  // la's row for row s of block i
+    if (i < nb) {
+      ra = FOLD ? src : row0(i) + s;
+      if (FOLD && i + 1 < nb) src = rows[row0(i + 1) + s];
+    }
     if constexpr (STAGED) {
       if (i < nb) {
         const int64_t o = (int64_t)(row0(i) + s) * B + (b - c);
         if (c == 0) cp_async<PASS1_CW * sizeof(TC)>(tiles[d].ls[s], ls + o);
         if (c == 1) cp_async<PASS1_CW * sizeof(TC)>(tiles[d].lp[s], lp + o);
-        if (c == 2) cp_async<PASS1_CW * sizeof(TE)>(tiles[d].la[s], la + o);
+        if (c == 2)
+          cp_async<PASS1_CW * sizeof(TE)>(tiles[d].la[s],
+                                          la + ra * B + (b - c));
       }
       cp_async_commit();
     } else {
@@ -638,7 +500,7 @@ __device__ __forceinline__ void walk(const TC* __restrict__ ls,
       const int64_t o = (int64_t)(row0(i) + s) * B + b;
       rls[d] = ls[o];
       rlp[d] = lp[o];
-      rla[d] = la[o];
+      rla[d] = la[ra * B + b];
     }
   };
   // A and P of the 8 rows of block i (slot d) on every lane of the codeword:
@@ -666,7 +528,7 @@ __device__ __forceinline__ void walk(const TC* __restrict__ ls,
       P[jj] = __shfl_sync(FULL, p_s, g | jj);
     }
   };
-  float m = s == 0 ? 0.0f : -BIG;  // e0
+  float m = BND ? edge[s * B + b] : (s == 0 ? 0.0f : -BIG);
 #pragma unroll
   for (int j = 0; j < PASS1_DEPTH - 1; ++j) fetch(j, j);
   int in_win = 0, n_ck = 0;  // blocks into the window; checkpoints written
@@ -702,88 +564,90 @@ __device__ __forceinline__ void walk(const TC* __restrict__ ls,
   }
 }
 
-// Pass 1: blockIdx.y 0 walks alpha, 1 walks beta, PASS1_CW codewords a warp,
-// 8 lanes each.  Lanes of codewords past B walk the last codeword and store
-// nothing: every lane takes part in every shuffle.
+// Pass 1 of the exact contract: blockIdx.y 0 walks alpha, 1 walks beta,
+// PASS1_CW codewords a warp, 8 lanes each.  Lanes of codewords past B walk
+// the last codeword and store nothing: every lane takes part in every
+// shuffle.
 template <int MODE, bool STAGED, typename TC, typename TE>
 __global__ void exact_pass1(const TC* __restrict__ ls,
                             const TC* __restrict__ lp,
                             const TE* __restrict__ la, float* __restrict__ ack,
                             float* __restrict__ bck, int B_, int K, int n_win,
-                            int W, float eff) {
+                            int W, float eff, Edges e) {
   __shared__ __align__(16) Tile<TC, TE> tiles[STAGED ? PASS1_DEPTH : 1];
   const int64_t B = B_;
   const int64_t bq = (int64_t)blockIdx.x * PASS1_CW + (threadIdx.x >> 3);
   const bool live = bq < B;
   const int64_t b = live ? bq : B - 1;
   if (blockIdx.y == 0)
-    walk<MODE, true, STAGED>(ls, lp, la, ack, B, b, live, K, n_win, W, eff,
-                             tiles);
+    walk<MODE, true, STAGED>(ls, lp, la, nullptr, e.a_in, ack, B, b, live, K,
+                             n_win, W, eff, tiles);
   else
-    walk<MODE, false, STAGED>(ls, lp, la, bck, B, b, live, K, n_win, W, eff,
-                              tiles);
+    walk<MODE, false, STAGED>(ls, lp, la, nullptr, e.b_in, bck, B, b, live, K,
+                              n_win, W, eff, tiles);
 }
 
 // The NII contract's alpha walk of window w for codeword st.b (pass 1):
-// from ain[w] (e0 for window 0), renormalised after every 8-step block of the
-// window as the serial kernel does; alpha at each segment start inside the
-// window goes to ack (segment 0's slot is never read), the window's end to
-// aout[w + 1] (the last window's end goes nowhere).
+// from ain[w] (window 0 from its edge), renormalised after every 8-step
+// block of the window; alpha at each segment start inside the window goes to
+// ack (segment 0's slot is never read), the window's end to aout[w + 1] (the
+// last window's end comes from pass 2).
 template <int MODE, typename TC, typename TE>
-__device__ __forceinline__ void window_alpha(const Streams<TC, TE, false>& st,
+__device__ __forceinline__ void window_alpha(const Streams<TC, TE>& st,
                                              const float* __restrict__ ain,
                                              float* __restrict__ aout,
                                              float* __restrict__ ack, int w,
-                                             int n_win, int W, int seg) {
+                                             int n_win, int W, int seg,
+                                             const float* a_in) {
   const int64_t B = st.B, b = st.b;
   const int base = w * W;
   float alpha[8];
-  if (w == 0) init_e0(alpha);
+  if (w == 0) start_edge(alpha, a_in, B, b);
   else load_edge(alpha, ain + (int64_t)w * 8 * B, B, b);
   Rows<TC, TE> r0, r1;
   st.fetch(base, r0);
   for (int tw = 0; tw < W; tw += 2 * UNROLL) {
     if (tw % seg == 0 && base + tw > 0)
       store_edge(ack + (int64_t)((base + tw) / seg) * 8 * B, alpha, B, b);
-    alpha_block<MODE>(st, base + tw, tw + UNROLL < W, r0, r1, alpha, nullptr,
-                      0);
+    alpha_block<MODE>(st, base + tw, tw + UNROLL < W, r0, r1, alpha);
     const int t1 = tw + UNROLL;
     if (t1 == W) break;
     if (t1 % seg == 0)
       store_edge(ack + (int64_t)((base + t1) / seg) * 8 * B, alpha, B, b);
-    alpha_block<MODE>(st, base + t1, t1 + UNROLL < W, r1, r0, alpha, nullptr,
-                      0);
+    alpha_block<MODE>(st, base + t1, t1 + UNROLL < W, r1, r0, alpha);
   }
   if (w + 1 < n_win) store_edge(aout + (int64_t)(w + 1) * 8 * B, alpha, B, b);
 }
 
-// K1's pass 1, one launch: blocks [0, n_beta) walk beta over the segments as
-// exact_pass1's beta slice does (PASS1_CW codewords a warp, 8 lanes each);
-// the n_win x ceil(B / 32) blocks after them walk the window alphas, one
-// thread per (window, codeword).  The beta blocks come first, so the long
-// walk starts first and the short ones fill the SMs beside it.
+// Pass 1 of the NII contract, one launch: blocks [0, n_beta) walk beta over
+// the segments as exact_pass1's beta slice does (PASS1_CW codewords a warp,
+// 8 lanes each); the n_win x ceil(B / 32) blocks after them walk the window
+// alphas, one thread per (window, codeword).  The beta blocks come first,
+// so the long walk starts first and the short ones fill the SMs beside it.
 template <int MODE, bool STAGED, typename TC, typename TE>
 __global__ void nii_pass1(const TC* __restrict__ ls, const TC* __restrict__ lp,
                           const TE* __restrict__ la,
+                          const int* __restrict__ idx,
                           const float* __restrict__ ain,
                           float* __restrict__ aout, float* __restrict__ ack,
                           float* __restrict__ bck, int B_, int K, int n_win,
-                          int W, int seg, int n_beta, float eff) {
+                          int W, int seg, int n_beta, float eff, Edges e) {
   __shared__ __align__(16) Tile<TC, TE> tiles[STAGED ? PASS1_DEPTH : 1];
   const int64_t B = B_;
   if ((int)blockIdx.x < n_beta) {
     const int64_t bq = (int64_t)blockIdx.x * PASS1_CW + (threadIdx.x >> 3);
     const bool live = bq < B;
-    walk<MODE, false, STAGED>(ls, lp, la, bck, B, live ? bq : B - 1, live, K,
-                              n_win * W / seg, seg, eff, tiles);
+    walk<MODE, false, STAGED>(ls, lp, la, idx, e.b_in, bck, B,
+                              live ? bq : B - 1, live, K, n_win * W / seg,
+                              seg, eff, tiles);
     return;
   }
   const int i = (int)blockIdx.x - n_beta;
   const int gx = (B_ + EXACT_THREADS - 1) / EXACT_THREADS;
   const int64_t b = (int64_t)(i % gx) * EXACT_THREADS + threadIdx.x;
   if (b >= B) return;
-  const Streams<TC, TE, false> st{ls, lp, la, nullptr, B, b, K, eff};
-  window_alpha<MODE>(st, ain, aout, ack, i / gx, n_win, W, seg);
+  const Streams<TC, TE> st{ls, lp, la, idx, B, b, K, eff};
+  window_alpha<MODE>(st, ain, aout, ack, i / gx, n_win, W, seg, e.a_in);
 }
 
 // Pass 2, one backward block at t0 (window block i): alpha over the block
@@ -792,9 +656,9 @@ __global__ void nii_pass1(const TC* __restrict__ ls, const TC* __restrict__ lp,
 // next block down is fetched first.
 template <int MODE, typename TC, typename TE>
 __device__ __forceinline__ void exact_block(
-    const Streams<TC, TE, false>& st, int t0, bool more,
-    const Rows<TC, TE>& cur, Rows<TC, TE>& nxt, const float* sub,
-    float (&beta)[8], TE* __restrict__ le, float inv_q) {
+    const Streams<TC, TE>& st, int t0, bool more, const Rows<TC, TE>& cur,
+    Rows<TC, TE>& nxt, const float* sub, float (&beta)[8],
+    TE* __restrict__ le, float inv_q) {
   float A[UNROLL], P[UNROLL];
   st.metrics(cur, t0, A, P);
   if (more) st.fetch(t0 - UNROLL, nxt);
@@ -819,10 +683,12 @@ __device__ __forceinline__ void exact_block(
 template <int MODE, typename TC, typename TE>
 __global__ void exact_pass2(const TC* __restrict__ ls,
                             const TC* __restrict__ lp,
-                            const TE* __restrict__ la, TE* __restrict__ le,
+                            const TE* __restrict__ la,
+                            const int* __restrict__ idx, TE* __restrict__ le,
                             const float* __restrict__ ack,
                             const float* __restrict__ bck, int B_, int K,
-                            int n_win, int W, float eff, float inv_q) {
+                            int n_win, int W, float eff, float inv_q,
+                            Edges e) {
   // the sub-checkpoints of the block's EXACT_THREADS codewords: (W / UNROLL,
   // 8, EXACT_THREADS) fp32, state s of block i of lane l at (i*8 + s)*32 + l
   extern __shared__ float exact_sub[];
@@ -830,31 +696,36 @@ __global__ void exact_pass2(const TC* __restrict__ ls,
   const int lane = threadIdx.x;
   const int64_t b = (int64_t)blockIdx.x * EXACT_THREADS + lane;
   if (b >= B) return;  // each thread reads only its own shared memory
-  const Streams<TC, TE, false> st{ls, lp, la, nullptr, B, b, K, eff};
+  const Streams<TC, TE> st{ls, lp, la, idx, B, b, K, eff};
   const int w = blockIdx.y, base = w * W, nsub = W / UNROLL;
   float* sub = exact_sub + lane;
   Rows<TC, TE> r0, r1;
+  // BND: the last segment's last block gives the outgoing alpha edge; its
+  // steps are unused otherwise
+  const bool tail = BND && w == n_win - 1;
 
   float alpha[8];
-  if (w == 0) init_e0(alpha);
+  if (w == 0) start_edge(alpha, e.a_in, B, b);
   else load_edge(alpha, ack + (int64_t)w * 8 * B, B, b);
   st.fetch(base, r0);
-  // forward: alpha at each block start; the last block's steps are unused
+  // forward: alpha at each block start
   for (int i = 0; i < nsub; i += 2) {
 #pragma unroll
     for (int s = 0; s < 8; ++s) sub[(i * 8 + s) * EXACT_THREADS] = alpha[s];
+    if (i + 1 == nsub && !tail) break;
+    alpha_block<MODE>(st, base + i * UNROLL, i + 1 < nsub, r0, r1, alpha);
     if (i + 1 == nsub) break;
-    alpha_block<MODE>(st, base + i * UNROLL, true, r0, r1, alpha, nullptr, 0);
 #pragma unroll
     for (int s = 0; s < 8; ++s)
       sub[((i + 1) * 8 + s) * EXACT_THREADS] = alpha[s];
-    if (i + 2 == nsub) break;
-    alpha_block<MODE>(st, base + (i + 1) * UNROLL, true, r1, r0, alpha,
-                      nullptr, 0);
+    if (i + 2 == nsub && !tail) break;
+    alpha_block<MODE>(st, base + (i + 1) * UNROLL, i + 2 < nsub, r1, r0,
+                      alpha);
   }
+  if (tail) store_edge(e.a_out, alpha, B, b);
 
   float beta[8];
-  if (w == n_win - 1) init_e0(beta);
+  if (w == n_win - 1) start_edge(beta, e.b_in, B, b);
   else load_edge(beta, bck + (int64_t)w * 8 * B, B, b);
   st.fetch(base + W - UNROLL, r0);
   for (int i = nsub - 1; i >= 0; i -= 2) {
@@ -864,6 +735,7 @@ __global__ void exact_pass2(const TC* __restrict__ ls,
     exact_block<MODE>(st, base + (i - 1) * UNROLL, i > 1, r1, r0,
                       sub + (i - 1) * 8 * EXACT_THREADS, beta, le, inv_q);
   }
+  if (BND && w == 0) store_edge(e.b_out, beta, B, b);
 }
 
 // The unit of the window-parallel passes: the largest power of two up to 64
@@ -881,51 +753,53 @@ constexpr int segment_of(int n) {
 // call).
 constexpr int PASS1 = 1, PASS2 = 2;
 
-// The window-parallel contracts on one stream.  ck is (2, n_seg, 8, B) fp32:
-// alpha checkpoints (slot 0 unused), then beta checkpoints (slot n_seg - 1
+// Every contract on one stream.  ck is (2, n_seg, 8, B) fp32: alpha
+// checkpoints (slot 0 unused), then beta checkpoints (slot n_seg - 1
 // unused).  Exact: (n_win, W) are the segments, ain/aout unused.  NII:
 // (n_win, W) are the windows, ain/aout the (n_win, 8, B) window tables.
 template <typename TC, typename TE, int MODE>
-cudaError_t launch_parallel(bool nii, const void* ls, const void* lp,
-                            const void* la, void* le, const float* ain,
-                            float* aout, float* ck, int B, int K, int n_win,
-                            int W, float eff, float inv_q, int passes,
-                            cudaStream_t stream) {
+cudaError_t launch(bool nii, const void* ls, const void* lp, const void* la,
+                   const int* idx, void* le, const float* ain, float* aout,
+                   float* ck, int B, int K, int n_win, int W, float eff,
+                   float inv_q, const Edges& e, int passes,
+                   cudaStream_t stream) {
   const int seg = nii ? segment_of(W) : W;
   const int n_seg = n_win * W / seg;
+  const int Kc = K - e.off;  // the mask on the chunk's own rows
   float* ack = ck;
   float* bck = ck + (int64_t)n_seg * 8 * B;
+  const TC* cls = (const TC*)ls;
+  const TC* clp = (const TC*)lp;
+  const TE* cla = (const TE*)la;
   const unsigned gx = (unsigned)((B + EXACT_THREADS - 1) / EXACT_THREADS);
   // staged: every warp's rows are whole aligned pieces of 4 codewords
   const bool staged = B % PASS1_CW == 0 &&
                       ((uintptr_t)ls | (uintptr_t)lp | (uintptr_t)la) % 16 == 0;
-  // one segment: pass 2 starts from e0 at both ends, and no window table is
-  // written (one window)
+  // one segment: pass 2 starts from the edges at both ends, and no window
+  // table is written (one window)
   if ((passes & PASS1) && n_seg > 1) {
-    const TC* cls = (const TC*)ls;
-    const TC* clp = (const TC*)lp;
-    const TE* cla = (const TE*)la;
     if (nii) {
       const int n_beta = (B + PASS1_CW - 1) / PASS1_CW;
       const dim3 g1((unsigned)(n_beta + n_win * (int)gx));
       if (staged)
         nii_pass1<MODE, true, TC, TE><<<g1, dim3(EXACT_THREADS), 0, stream>>>(
-            cls, clp, cla, ain, aout, ack, bck, B, K, n_win, W, seg, n_beta,
-            eff);
+            cls, clp, cla, idx, ain, aout, ack, bck, B, Kc, n_win, W, seg,
+            n_beta, eff, e);
       else
         nii_pass1<MODE, false, TC, TE><<<g1, dim3(EXACT_THREADS), 0, stream>>>(
-            cls, clp, cla, ain, aout, ack, bck, B, K, n_win, W, seg, n_beta,
-            eff);
-    } else {
+            cls, clp, cla, idx, ain, aout, ack, bck, B, Kc, n_win, W, seg,
+            n_beta, eff, e);
+    } else if constexpr (!FOLD) {
       const dim3 g1((unsigned)((B + PASS1_CW - 1) / PASS1_CW), 2);
       if (staged)
         exact_pass1<MODE, true, TC, TE><<<g1, dim3(EXACT_THREADS), 0,
                                           stream>>>(cls, clp, cla, ack, bck, B,
-                                                    K, n_seg, seg, eff);
+                                                    Kc, n_seg, seg, eff, e);
       else
         exact_pass1<MODE, false, TC, TE><<<g1, dim3(EXACT_THREADS), 0,
                                            stream>>>(cls, clp, cla, ack, bck,
-                                                     B, K, n_seg, seg, eff);
+                                                     B, Kc, n_seg, seg, eff,
+                                                     e);
     }
   }
   if (passes & PASS2) {
@@ -933,41 +807,11 @@ cudaError_t launch_parallel(bool nii, const void* ls, const void* lp,
     const size_t smem = (size_t)seg * 8 * EXACT_THREADS * sizeof(float) / UNROLL;
     if (smem > 48 * 1024) return cudaErrorInvalidValue;
     exact_pass2<MODE, TC, TE><<<dim3(gx, n_seg), dim3(EXACT_THREADS), smem,
-                                stream>>>((const TC*)ls, (const TC*)lp,
-                                          (const TE*)la, (TE*)le, ack, bck, B,
-                                          K, n_seg, seg, eff, inv_q);
+                                stream>>>(cls, clp, cla, idx, (TE*)le, ack,
+                                          bck, B, Kc, n_seg, seg, eff, inv_q,
+                                          e);
   }
   return cudaGetLastError();
-}
-
-template <typename TC, typename TE, int MODE>
-cudaError_t launch(bool nii, const void* ls, const void* lp, const void* la,
-                   const int* idx, void* le, const float* ain, float* aout,
-                   float* aw, float* ckpt, int B, int K, int n_win, int W,
-                   float eff, float inv_q, int threads, cudaStream_t stream,
-                   const Edges& e) {
-#if SISO_FOLD || SISO_BND
-  // the serial kernel: K5 (folded read, NII) or K4 (boundary forms)
-  constexpr bool FOLD = SISO_FOLD != 0, BND = SISO_BND != 0;
-  const dim3 grid((B + threads - 1) / threads), block(threads);
-  if (FOLD && (!nii || idx == nullptr)) return cudaErrorInvalidValue;
-  if (!FOLD && idx != nullptr) return cudaErrorInvalidValue;
-  if (nii)
-    siso_kernel<TC, TE, true, MODE, FOLD, BND><<<grid, block, 0, stream>>>(
-        (const TC*)ls, (const TC*)lp, (const TE*)la, idx, (TE*)le, ain, aout,
-        aw, ckpt, B, K, n_win, W, eff, inv_q, e);
-  else if constexpr (!FOLD)
-    siso_kernel<TC, TE, false, MODE, false, BND><<<grid, block, 0, stream>>>(
-        (const TC*)ls, (const TC*)lp, (const TE*)la, idx, (TE*)le, ain, aout,
-        aw, ckpt, B, K, n_win, W, eff, inv_q, e);
-  return cudaGetLastError();
-#else
-  // the plain library: both contracts window-parallel, no serial kernel
-  if (idx != nullptr) return cudaErrorInvalidValue;
-  return launch_parallel<TC, TE, MODE>(nii, ls, lp, la, le, ain, aout, ckpt,
-                                       B, K, n_win, W, eff, inv_q,
-                                       PASS1 | PASS2, stream);
-#endif
 }
 
 }  // namespace
@@ -976,15 +820,11 @@ cudaError_t launch(bool nii, const void* ls, const void* lp, const void* la,
 //   -DSISO_MODE=  0 max-log, 1 linlog, 2 log-MAP
 //   -DSISO_CHAN=  0 float32, 1 bfloat16          (ls, lp)
 //   -DSISO_EXT=   0 float32, 1 bfloat16, 2 int8  (la in, le out)
-//   -DSISO_FOLD=  0 (default) the NII and the exact contract, both
-//                 window-parallel,
-//                 1 the serial NII kernel with the folded read (K5), alone
-//   -DSISO_BND=   0 (default), or 1: the serial NII and exact kernels in
-//                 their boundary forms (K4), alone, behind
-//                 turbotpu_siso_bnd_launch
-// (the variants compile side by side, and a decode builds only its own; the
-// folded and the boundary kernels are libraries of their own so that a
-// decode without them never waits for their compile).
+//   -DSISO_FOLD=  0 (default), or 1: the NII contract with the folded read
+//                 (K5) alone
+//   -DSISO_BND=   0 (default), or 1: the NII and exact contracts in their
+//                 boundary forms (K4) alone
+// (the variants compile side by side, and a decode builds only its own).
 #if !defined(SISO_MODE) || !defined(SISO_CHAN) || !defined(SISO_EXT)
 #error "compile with -DSISO_MODE=, -DSISO_CHAN= and -DSISO_EXT="
 #endif
@@ -1003,74 +843,40 @@ template <> struct StreamType<1> { using type = __nv_bfloat16; };
 template <> struct StreamType<2> { using type = int8_t; };
 }  // namespace
 
-// mode, chan_type, ext_type: the caller's codes, which must be this
-// library's (else -1).
-// The plain library (SISO_FOLD=0, SISO_BND=0), window-parallel:
+// The entry of every library.  passes: 3 for a call, 1 or 2 for that pass
+// alone, to time it (pass 2 alone reads the checkpoints in ckpt, so a full
+// launch on the same operands comes first).  mode, chan_type, ext_type: the
+// caller's codes, which must be this library's (else -1).
 //   nii != 0: (n_win, W) are the windows; ain/aout are (n_win, 8, B) fp32,
 //             ckpt is (2, n_win * W / segment_of(W), 8, B) fp32 scratch;
 //   nii == 0: (n_win, W) are the segments the wrapper cut (W =
-//             segment_of(n_win * W)); ckpt is (2, n_win, 8, B) fp32 scratch,
-//             ain/aout unused;
-//   idx is null; aw and threads are unused.
-// The serial libraries (SISO_FOLD=1, SISO_BND=1): aw is (W, 8, B) fp32
-// scratch and threads the block size; nii != 0: ain/aout as above, ckpt
-// unused; nii == 0 (BND only): ckpt is (n_win, 8, B) fp32 scratch.  In a
-// SISO_FOLD library idx is the (n_win * W,) int32 gather table with values
-// in [0, n_win * W) (nii != 0 only).
-// Returns the launch's cudaError_t (0 = ok), the first failing one of its
-// launches.
-#if SISO_BND
-// The boundary forms: a_in, b_in, a_out, b_out are (8, B) fp32 (see Edges);
-// off is the chunk's first global row and K the global info length.
-extern "C" int turbotpu_siso_bnd_launch(
-    int mode, int chan_type, int ext_type, int nii, const void* ls,
-    const void* lp, const void* la, void* le, const void* ain, void* aout,
-    void* aw, void* ckpt, const void* a_in, const void* b_in, void* a_out,
-    void* b_out, int off, int B, int K, int n_win, int W, float eff,
-    float inv_q, int threads, void* stream) {
+//             segment_of(n_win * W)); ckpt is (2, n_win, 8, B) fp32
+//             scratch, ain/aout unused.
+// idx: null, except in a SISO_FOLD library (nii != 0 only): the
+// (n_win * W,) int32 gather table with values in [0, n_win * W).
+// a_in, b_in, a_out, b_out: null, except in a SISO_BND library: (8, B) fp32
+// each (see Edges), none of them overlapping another operand; off is the
+// chunk's first global row (0 elsewhere) and K the global info length.
+// Returns the cudaError_t (0 = ok) of the first failing launch.
+extern "C" int turbotpu_siso_launch(
+    int passes, int mode, int chan_type, int ext_type, int nii,
+    const void* ls, const void* lp, const void* la, const void* idx,
+    void* le, const void* ain, void* aout, void* ckpt, const void* a_in,
+    const void* b_in, void* a_out, void* b_out, int off, int B, int K,
+    int n_win, int W, float eff, float inv_q, void* stream) {
   if (mode != SISO_MODE || chan_type != SISO_CHAN || ext_type != SISO_EXT)
     return -1;
-  if (a_in == nullptr || b_in == nullptr || a_out == nullptr ||
-      b_out == nullptr)
+  const int n_edges = (a_in != nullptr) + (b_in != nullptr) +
+                      (a_out != nullptr) + (b_out != nullptr);
+  if (passes < PASS1 || passes > (PASS1 | PASS2) ||
+      (idx != nullptr) != FOLD || (FOLD && !nii) ||
+      n_edges != (BND ? 4 : 0) || (!BND && off != 0))
     return (int)cudaErrorInvalidValue;
   const Edges e{(const float*)a_in, (const float*)b_in, (float*)a_out,
                 (float*)b_out, off};
   return (int)launch<StreamType<SISO_CHAN>::type, StreamType<SISO_EXT>::type,
                      SISO_MODE>(
-      nii != 0, ls, lp, la, nullptr, le, (const float*)ain, (float*)aout,
-      (float*)aw, (float*)ckpt, B, K, n_win, W, eff, inv_q, threads,
-      (cudaStream_t)stream, e);
-}
-#else
-extern "C" int turbotpu_siso_launch(
-    int mode, int chan_type, int ext_type, int nii, const void* ls,
-    const void* lp, const void* la, const void* idx, void* le,
-    const void* ain, void* aout, void* aw, void* ckpt, int B, int K,
-    int n_win, int W, float eff, float inv_q, int threads, void* stream) {
-  if (mode != SISO_MODE || chan_type != SISO_CHAN || ext_type != SISO_EXT)
-    return -1;
-  return (int)launch<StreamType<SISO_CHAN>::type, StreamType<SISO_EXT>::type,
-                     SISO_MODE>(
       nii != 0, ls, lp, la, (const int*)idx, le, (const float*)ain,
-      (float*)aout, (float*)aw, (float*)ckpt, B, K, n_win, W, eff, inv_q,
-      threads, (cudaStream_t)stream, Edges{});
+      (float*)aout, (float*)ckpt, B, K, n_win, W, eff, inv_q, e, passes,
+      (cudaStream_t)stream);
 }
-#if !SISO_FOLD
-// One pass of the plain library's window-parallel contracts alone (pass 1 or
-// 2), with the operands of turbotpu_siso_launch, to time it.  Pass 2 reads
-// the checkpoints in ckpt, so a full launch on the same operands comes first.
-extern "C" int turbotpu_siso_pass_launch(
-    int pass, int mode, int chan_type, int ext_type, int nii, const void* ls,
-    const void* lp, const void* la, void* le, const void* ain, void* aout,
-    void* ckpt, int B, int K, int n_win, int W, float eff, float inv_q,
-    void* stream) {
-  if (mode != SISO_MODE || chan_type != SISO_CHAN || ext_type != SISO_EXT)
-    return -1;
-  if (pass != PASS1 && pass != PASS2) return (int)cudaErrorInvalidValue;
-  return (int)launch_parallel<StreamType<SISO_CHAN>::type,
-                              StreamType<SISO_EXT>::type, SISO_MODE>(
-      nii != 0, ls, lp, la, le, (const float*)ain, (float*)aout,
-      (float*)ckpt, B, K, n_win, W, eff, inv_q, pass, (cudaStream_t)stream);
-}
-#endif
-#endif

@@ -2,24 +2,17 @@
 PyTorch versions.
 
 Counterpart of turbotpu/siso/pallas_kernel.py.  The kernels are in
-csrc/siso.cu and replace `_make_kernel` (built by `_build_call`) in its two
-non-boundary contracts:
+csrc/siso.cu and replace `_make_kernel` (built by `_build_call`) in its
+contracts:
 
 * `siso_nii`   -- nii=True: window-start alphas inherited from the previous
   half-iteration (`ain`), fresh ones returned (`aout`);
 * `siso_exact` -- nii=False: no approximation;
-
-  the kernels run both window-parallel, two launches per call, counted once:
-  a beta walk beside alpha walks (exact: one over the whole trellis; NII: one
-  per window, from its inherited start) that leave checkpoints at segment
-  edges, then every segment decoded alone;
-
 * `siso_nii_fold` -- the NII contract with the extrinsic interleave folded
   into the kernel's a-priori read (the reference's `fold_gather=True` call,
   `pallas_call` at `:570`): `siso_cells(..., gather_idx=idx)` reads la row t
   from row `idx[t]` of the tensor it is given, which is the other SISO's raw
   output, so no gathered copy is made between the half-iterations;
-
 * `siso_bnd_exact`, `siso_bnd_nii` -- K4, the boundary contracts
   (`boundary=True` with and without nii, `with_offset`) that the
   sequence-sharded decoder runs on each chunk of the trellis:
@@ -33,6 +26,11 @@ each in the three max* modes of `_mstar`/`_mstar_tree` there.  max-log keeps
 the names above; the linlog and log-MAP instantiations count their
 launches as `siso_nii_linlog`, `siso_exact_linlog`, `siso_nii_fold_linlog`,
 `siso_bnd_nii_linlog`, `siso_bnd_exact_linlog`, and the same with `_logmap`.
+Every one runs window-parallel, two launches per call, counted once: a beta
+walk beside alpha walks (exact: one over the whole trellis; NII: one per
+window, from its inherited start) that leave checkpoints at segment edges,
+then every segment decoded alone (the boundary forms' outgoing edges come
+from the first and the last segment).
 
 Layout.  All streams are time-major `(T, B)` tensors: the same element order
 at each step as the JAX package's `(cells, T, 8, 128)`, without its batch
@@ -71,7 +69,6 @@ from .maxstar import LINLOG, LOGMAP, MAXLOG, MODES, maxstar2
 
 BIG = 1e9
 UNROLL = 8           # trellis steps per block; also the renorm cadence
-THREADS = 32         # codewords per thread block (one warp)
 
 _MODE_CODES = {MAXLOG: 0, LINLOG: 1, LOGMAP: 2}
 
@@ -334,184 +331,102 @@ def build_targets() -> list[_build.Target]:
 
 
 def _launch_fn(mode: str, chan: torch.dtype, ext: torch.dtype,
-               fold: bool = False, bnd: bool = False, one_pass: bool = False):
-    """The C entry of one variant: the call's launch, or with `one_pass`
-    the plain library's launch of one pass alone."""
+               fold: bool = False, bnd: bool = False):
+    """The C entry of one variant (`turbotpu_siso_launch`)."""
     lib = _build.load(*_target(_MODE_CODES[mode], _CHAN_TYPES[chan],
                                _EXT_TYPES[ext], fold, bnd))
-    fn = (lib.turbotpu_siso_pass_launch if one_pass else
-          lib.turbotpu_siso_bnd_launch if bnd else lib.turbotpu_siso_launch)
+    fn = lib.turbotpu_siso_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if one_pass:
-            fn.argtypes = [i, i, i, i, i, p, p, p, p, p, p, p, i, i, i, i, f,
-                           f, p]
-        elif bnd:
-            fn.argtypes = [i, i, i, i, p, p, p, p, p, p, p, p, p, p, p, p, i,
-                           i, i, i, i, f, f, i, p]
-        else:
-            fn.argtypes = [i, i, i, i, p, p, p, p, p, p, p, p, p, i, i, i, i,
-                           f, f, i, p]
+        fn.argtypes = [i] * 5 + [p] * 12 + [i] * 5 + [f, f, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _scratch(T, B, W, nii, parallel, dev):
-    """The kernel's window table and scratch: (aout, ck, aw, n_win, W) with
+PASS1, PASS2 = 1, 2   # the `passes` of the C entry: one of them, or both
+
+
+def _scratch(T, B, W, nii, dev):
+    """The kernel's window table and scratch: (aout, ck, n_win, W) with
     (n_win, W) as the kernel takes them.  NII: aout is the (n_win, 8, B)
-    window table.  The window-parallel contracts (the plain library) keep
-    the alpha and beta checkpoints at segment edges, ck (2, n_seg, 8, B),
-    and the segment alphas on chip; the exact contract is handed its
-    segments as windows.  The serial forms take the (W, 8, B) alpha window
-    scratch aw, and the boundary exact form phase 1's (n_win, 8, B) window
-    starts as ck."""
+    window table.  ck (2, n_seg, 8, B) holds the alpha and beta checkpoints
+    at segment edges; the segment alphas stay on chip.  The exact contract
+    is handed its segments as windows."""
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
-    n_win = T // W
-    aout = empty(n_win, 8, B) if nii else None
-    if not parallel:
-        return aout, None if nii else empty(n_win, 8, B), empty(W, 8, B), \
-            n_win, W
     seg = exact_segment(W if nii else T)
     ck = empty(2, T // seg, 8, B)
-    return (aout, ck, None, n_win, W) if nii else (None, ck, None, T // seg,
-                                                   seg)
+    if nii:
+        return empty(T // W, 8, B), ck, T // W, W
+    return None, ck, T // seg, seg
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(ls, lp, la, ain, K_real, W, eff, inv_q, mode, idx=None,
-            edges=None, row_offset=0, edges_out=None):
-    """Launch the NII (ain given; with idx its folded form) or exact (ain
-    None) kernel of `mode` on CUDA tensors; with edges = (a_in, b_in) its
-    boundary form, which writes its outgoing edges into edges_out where
-    given.  Returns (le, aout, a_edge, b_edge) as _siso_plain."""
+def _launcher(ls, lp, la, ain, K_real, W, eff, inv_q, mode, idx=None,
+              edges=None, row_offset=0, edges_out=None):
+    """Allocate the outputs and scratch of one call of the NII (ain given;
+    with idx its folded form) or exact (ain None) kernel of `mode` on CUDA
+    tensors; with edges = (a_in, b_in) its boundary form, which writes its
+    outgoing edges into edges_out where given.  Returns (run, outputs):
+    run(passes) launches the passes on them and raises if a launch fails;
+    outputs is (le, aout, a_edge, b_edge) as _siso_plain returns them."""
     T, B = ls.shape
     dev = ls.device
     f32 = torch.float32
     le = torch.empty_like(la)
     nii, fold, bnd = ain is not None, idx is not None, edges is not None
-    aout, ck, aw, n_win, W = _scratch(T, B, W, nii, not (fold or bnd), dev)
-    fn = _launch_fn(mode, ls.dtype, la.dtype, fold, bnd)
-    codes = (_MODE_CODES[mode], _CHAN_TYPES[ls.dtype], _EXT_TYPES[la.dtype],
-             int(nii))
-    tables = (_ptr(ain), _ptr(aout), _ptr(aw), _ptr(ck))
-    tail = (B, K_real, n_win, W, eff, inv_q, THREADS)
+    aout, ck, n_win, Wk = _scratch(T, B, W, nii, dev)
     a_edge = b_edge = None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        LAUNCHES[kernel_name(nii, mode, fold, bnd)] += 1
-        if bnd:
-            a_edge, b_edge = edges_out or (
-                torch.empty((8, B), dtype=f32, device=dev),
-                torch.empty((8, B), dtype=f32, device=dev))
-            rc = fn(*codes, ls.data_ptr(), lp.data_ptr(), la.data_ptr(),
-                    le.data_ptr(), *tables, edges[0].data_ptr(),
-                    edges[1].data_ptr(), a_edge.data_ptr(), b_edge.data_ptr(),
-                    row_offset, *tail, stream)
-        else:
-            rc = fn(*codes, ls.data_ptr(), lp.data_ptr(), la.data_ptr(),
-                    _ptr(idx), le.data_ptr(), *tables, *tail, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"siso kernel launch failed: cudaError {rc} "
-            f"(T={T}, B={B}, W={W}, chan={ls.dtype}, ext={la.dtype}, "
-            f"nii={nii}, fold={fold}, boundary={bnd}, mode={mode})")
-    return le, aout, a_edge, b_edge
+    if bnd:
+        a_edge, b_edge = edges_out or (
+            torch.empty((8, B), dtype=f32, device=dev),
+            torch.empty((8, B), dtype=f32, device=dev))
+    fn = _launch_fn(mode, ls.dtype, la.dtype, fold, bnd)
+    head = (_MODE_CODES[mode], _CHAN_TYPES[ls.dtype], _EXT_TYPES[la.dtype],
+            int(nii), ls.data_ptr(), lp.data_ptr(), la.data_ptr(), _ptr(idx),
+            le.data_ptr(), _ptr(ain), _ptr(aout))
+    tail = (*((edges[0].data_ptr(), edges[1].data_ptr(), a_edge.data_ptr(),
+               b_edge.data_ptr()) if bnd else (None,) * 4),
+            row_offset, B, K_real, n_win, Wk, eff, inv_q)
+
+    def run(passes):
+        # ck is read here, so it lives as long as run: it is no output
+        with torch.cuda.device(dev):
+            rc = fn(passes, *head, ck.data_ptr(), *tail,
+                    torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"siso kernel launch failed (passes {passes}): cudaError {rc} "
+                f"(T={T}, B={B}, W={W}, chan={ls.dtype}, ext={la.dtype}, "
+                f"nii={nii}, fold={fold}, boundary={bnd}, mode={mode})")
+    return run, (le, aout, a_edge, b_edge)
 
 
 def pass_launchers(ls, lp, la, K_real: int, mode: str, scale: float = 1.0,
-                   nii_ckpt: torch.Tensor | None = None, window: int = 0,
-                   ext_qscale: float = 0.0):
-    """The two passes of one window-parallel `siso_cells` call (NII with
-    `nii_ckpt`, else exact) on CUDA tensors, as two callables that launch
-    one pass each on the same operands and scratch, to time them apart.
-    Both passes run once here first, so the checkpoints that pass 2 reads
-    hold this call's values.  These launches are a measurement, not the
-    decoder's path: they are not counted in `LAUNCHES`."""
-    T, B = ls.shape
-    W = window or window_len(T)
-    nii = nii_ckpt is not None
-    dev = ls.device
-    if dev.type != "cuda":
+                   **options):
+    """The two passes of one `siso_cells` call (the same arguments, its
+    keyword options included) on CUDA tensors, as two callables that launch
+    one pass each on the same operands, outputs and scratch, to time them
+    apart.  Both passes run once here first, so the checkpoints that pass 2
+    reads hold this call's values.  These launches are a measurement, not
+    the decoder's path: they are not counted in `LAUNCHES`."""
+    if ls.device.type != "cuda":
         raise ValueError("pass_launchers times the kernel: CUDA tensors only")
-    eff = scale * (ext_qscale if ext_qscale else 1.0)
-    inv_q = 1.0 / ext_qscale if ext_qscale else 1.0
-    le = torch.empty_like(la)
-    aout, ck, _, n_win, Wk = _scratch(T, B, W, nii, True, dev)
-    fn = _launch_fn(mode, ls.dtype, la.dtype, one_pass=True)
-    codes = (_MODE_CODES[mode], _CHAN_TYPES[ls.dtype], _EXT_TYPES[la.dtype],
-             int(nii))
-
-    def run(which):
-        with torch.cuda.device(dev):
-            rc = fn(which, *codes, ls.data_ptr(), lp.data_ptr(),
-                    la.data_ptr(), le.data_ptr(), _ptr(nii_ckpt), _ptr(aout),
-                    ck.data_ptr(), B, K_real, n_win, Wk, eff, inv_q,
-                    torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"siso pass {which} launch failed: "
-                               f"cudaError {rc}")
-
-    run(1)
-    run(2)
-    return (lambda: run(1)), (lambda: run(2))
+    run, _ = _launcher(*_operands(ls, lp, la, K_real, mode, scale,
+                                  **options))
+    run(PASS1 | PASS2)
+    return (lambda: run(PASS1)), (lambda: run(PASS2))
 
 
-def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
-               K_real: int, mode: str, scale: float = 1.0,
-               nii_ckpt: torch.Tensor | None = None, window: int = 0,
-               ext_qscale: float = 0.0,
-               gather_idx: torch.Tensor | None = None,
-               boundaries: tuple | None = None,
-               nii_boundaries: tuple | None = None, row_offset: int = 0,
-               edges_out: tuple | None = None):
-    """Kernel entry: raw LLR streams in, extrinsics out.
-
-    ls/lp/la: contiguous (KTp, B) with KTp a multiple of the window; pad
-    steps beyond the real trellis carry ls = +BIG, lp = 0.  ls and lp share
-    a type (float32 or bfloat16); la, and the le that comes back, may be
-    float32, bfloat16 or int8 codes of step `ext_qscale`.  The kernel forms
-    A = -(scale*la*[t < K_real] + ls), P = -lp itself; le rows at
-    t >= K_real are finite garbage.
-
-    nii_ckpt: optional (n_win, 8, B) fp32 window-start alphas from the
-    previous half-iteration (cold start: zeros).  With it the call returns
-    (le, new_ckpt) and runs the NII kernel of `mode`; without it, le alone
-    from the exact kernel of `mode`.
-
-    gather_idx: optional (KTp,) int32 table shared by the batch, values in
-    [0, KTp) (NII contract only): the a-priori row of step t is read from
-    `la[gather_idx[t]]`.  The caller passes the OTHER SISO's raw extrinsic
-    output and makes no gathered copy; the result equals the call without
-    the option on `la.index_select(0, gather_idx)` bit for bit.  The mask
-    [t < K_real] is on the step, after the read.
-
-    boundaries: optional (a0, bT), (8, B) fp32 each (K4, exact): the
-    recursions start from alpha a0 at the chunk's first row and beta bT at
-    its last; returns (le, aout, bout), alpha at the chunk end and beta at
-    its start, (8, B) each.
-
-    nii_boundaries: optional (ain, edge_in, bT) (K4, NII): ain the
-    (n_win, 8, B) window table this kernel wrote last half-iteration (slot 0
-    is never read), edge_in the (8, B) alpha edge received from the
-    neighbouring chunk (e0 on the first), bT as above; returns (le, aout,
-    eout, bout): aout feeds the next call's ain as it is (slot 0 is never
-    written), eout the last window's end alpha, the edge to ship.
-
-    row_offset: with either boundary form, the chunk's first global row: the
-    a-priori mask becomes [row_offset + t < K_real], K_real the global info
-    length.  The three contracts (nii_ckpt, boundaries, nii_boundaries) are
-    mutually exclusive.
-
-    edges_out: optional (a_out, b_out), contiguous (8, B) fp32 tensors on
-    the streams' device, with either boundary form: the outgoing edges (the
-    exact contract's aout, the NII contract's eout, and bout) are written
-    into them, and they are what comes back.  The sequence-sharded decoder
-    passes views of K6's send buffers, so no copy is made before an
-    exchange.
-    """
+def _operands(ls, lp, la, K_real, mode, scale=1.0, nii_ckpt=None, window=0,
+              ext_qscale=0.0, gather_idx=None, boundaries=None,
+              nii_boundaries=None, row_offset=0, edges_out=None):
+    """Check the arguments of `siso_cells` and bring them to the kernel's
+    form: (ls, lp, la, ain, K_real, W, eff, inv_q, mode, idx, edges,
+    row_offset, edges_out), the arguments of `_launcher` and `_siso_plain`'s
+    (with scale and ext_qscale in place of eff and inv_q)."""
     if mode not in MODES:
         raise ValueError(f"unknown max* mode {mode!r}")
     if ls.dim() != 2 or lp.shape != ls.shape or la.shape != ls.shape:
@@ -578,7 +493,71 @@ def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
         raise ValueError("all tensors must lie on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("all tensors must be contiguous")
+    if ls.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {ls.device}")
+    eff = scale * (ext_qscale if ext_qscale else 1.0)
+    inv_q = 1.0 / ext_qscale if ext_qscale else 1.0
+    return (ls, lp, la, ain, K_real, W, eff, inv_q, mode, gather_idx, edges,
+            row_offset, edges_out)
 
+
+def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
+               K_real: int, mode: str, scale: float = 1.0,
+               nii_ckpt: torch.Tensor | None = None, window: int = 0,
+               ext_qscale: float = 0.0,
+               gather_idx: torch.Tensor | None = None,
+               boundaries: tuple | None = None,
+               nii_boundaries: tuple | None = None, row_offset: int = 0,
+               edges_out: tuple | None = None):
+    """Kernel entry: raw LLR streams in, extrinsics out.
+
+    ls/lp/la: contiguous (KTp, B) with KTp a multiple of the window; pad
+    steps beyond the real trellis carry ls = +BIG, lp = 0.  ls and lp share
+    a type (float32 or bfloat16); la, and the le that comes back, may be
+    float32, bfloat16 or int8 codes of step `ext_qscale`.  The kernel forms
+    A = -(scale*la*[t < K_real] + ls), P = -lp itself; le rows at
+    t >= K_real are finite garbage.
+
+    nii_ckpt: optional (n_win, 8, B) fp32 window-start alphas from the
+    previous half-iteration (cold start: zeros).  With it the call returns
+    (le, new_ckpt) and runs the NII kernel of `mode`; without it, le alone
+    from the exact kernel of `mode`.
+
+    gather_idx: optional (KTp,) int32 table shared by the batch, values in
+    [0, KTp) (NII contract only): the a-priori row of step t is read from
+    `la[gather_idx[t]]`.  The caller passes the OTHER SISO's raw extrinsic
+    output and makes no gathered copy; the result equals the call without
+    the option on `la.index_select(0, gather_idx)` bit for bit.  The mask
+    [t < K_real] is on the step, after the read.
+
+    boundaries: optional (a0, bT), (8, B) fp32 each (K4, exact): the
+    recursions start from alpha a0 at the chunk's first row and beta bT at
+    its last; returns (le, aout, bout), alpha at the chunk end and beta at
+    its start, (8, B) each.
+
+    nii_boundaries: optional (ain, edge_in, bT) (K4, NII): ain the
+    (n_win, 8, B) window table this kernel wrote last half-iteration (slot 0
+    is never read), edge_in the (8, B) alpha edge received from the
+    neighbouring chunk (e0 on the first), bT as above; returns (le, aout,
+    eout, bout): aout feeds the next call's ain as it is (slot 0 is never
+    written), eout the last window's end alpha, the edge to ship.
+
+    row_offset: with either boundary form, the chunk's first global row: the
+    a-priori mask becomes [row_offset + t < K_real], K_real the global info
+    length.  The three contracts (nii_ckpt, boundaries, nii_boundaries) are
+    mutually exclusive.
+
+    edges_out: optional (a_out, b_out), contiguous (8, B) fp32 tensors on
+    the streams' device, with either boundary form: the outgoing edges (the
+    exact contract's aout, the NII contract's eout, and bout) are written
+    into them, and they are what comes back; they must not overlap any
+    other operand.  The sequence-sharded decoder passes views of K6's send
+    buffers, so no copy is made before an exchange.
+    """
+    ops = _operands(ls, lp, la, K_real, mode, scale, nii_ckpt, window,
+                    ext_qscale, gather_idx, boundaries, nii_boundaries,
+                    row_offset, edges_out)
+    ain, W, edges = ops[3], ops[5], ops[10]
     if ls.device.type == "cpu":
         le, ck, a_edge, b_edge = _siso_plain(
             ls, lp, la, ain, K_real, W, scale, ext_qscale, mode, gather_idx,
@@ -586,14 +565,11 @@ def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
         if edges_out is not None:
             a_edge = edges_out[0].copy_(a_edge)
             b_edge = edges_out[1].copy_(b_edge)
-    elif ls.device.type == "cuda":
-        eff = scale * (ext_qscale if ext_qscale else 1.0)
-        inv_q = 1.0 / ext_qscale if ext_qscale else 1.0
-        le, ck, a_edge, b_edge = _launch(ls, lp, la, ain, K_real, W, eff,
-                                         inv_q, mode, gather_idx, edges,
-                                         row_offset, edges_out)
     else:
-        raise ValueError(f"unsupported device {ls.device}")
+        run, (le, ck, a_edge, b_edge) = _launcher(*ops)
+        LAUNCHES[kernel_name(ain is not None, mode, gather_idx is not None,
+                             edges is not None)] += 1
+        run(PASS1 | PASS2)
     if boundaries is not None:
         return le, a_edge, b_edge
     if nii_boundaries is not None:
