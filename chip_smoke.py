@@ -4,10 +4,10 @@
     python3 chip_smoke.py [--ptxas] [--phases kernels,decode,...]
 
 Phases: kernels, decode, bench, mixed, gather, encoder, fold, calibrate, tb,
-seq, dist, compact, ber.
+seq, fp8, dist, compact, ber, profile, variants, harness.
 
 Needs one NVIDIA card, nvcc and no network.  It builds the port's CUDA
-kernels from turbotpu_torch/csrc (siso.cu in all its variants, row_gather.cu,
+kernels from turbotpu_torch/csrc (siso.cu in all its 72 variants, row_gather.cu,
 issue_rate.cu, ring_xch.cu), holds each against its plain PyTorch version on
 the card (every SISO kernel, exact, NII, folded and boundary, at difference
 0 in every mode, also at batches that are not a multiple of their blocks,
@@ -50,11 +50,27 @@ entry points:
   (`simulate_point(compact_stage1=, compact_flush=)`), whose counts must
   equal the plain ones on the same frames (phase `compact`);
 * `turbotpu_torch.experiments.cost_breakdown`, the issue-rate calibration
-  (phase `calibrate`).
+  (phase `calibrate`);
+* float8_e4m3fn extrinsic streams: the eighteen fp8 libraries of siso.cu
+  (three modes, two channel types, plain, folded and boundary forms)
+  against their plain versions at difference 0 and timed at the int8 and
+  bf16 rows' shapes, the flagship decode with fp8 extrinsics (lean and
+  crc, bits, launches, against its plain path on a small batch, beside
+  int8 in turns), every fp8 library through the entry points, and
+  `cli c5 --ext-dtype float8_e4m3fn` (phase `fp8`);
+* `cli bench --profile` on the flagship and a trace of C5: the SISO kernels
+  in the trace, the top device operations, the device's idle share and the
+  idle gaps at the early-exit host reads (phase `profile`);
+* `siso="window"` against the same frames on the CPU and `siso="ascan"`
+  against `siso="scan"`, one K=6144 decode each (phase `variants`);
+* `cli scaling --devices 1`, `cli supervise -- ber --config c1` with a frame
+  cap, and `harness.debug.checked` around the flagship decode (phase
+  `harness`).
 
 Each phase prints one JSON line; any failure is an exception and a non-zero
 exit.  The last line is {"ok": true, "device": {...}}.  --ptxas also prints
-the compiler's register and spill report.  --phases runs a subset (for
+every kernel's registers, spills, stack and shared memory
+(`harness.profiling.compiled_stats`).  --phases runs a subset (for
 iterating on one phase); the closing lines are printed only by a full run.
 """
 
@@ -81,7 +97,8 @@ MODES = ("maxlog", "linlog", "logmap")
 _PALLAS = "turbotpu/siso/pallas_kernel.py"
 KERNEL_SOURCE = "turbotpu_torch/csrc/siso.cu"
 ALL_PHASES = ("kernels", "decode", "bench", "mixed", "gather", "encoder",
-              "fold", "calibrate", "tb", "seq", "dist", "compact", "ber")
+              "fold", "calibrate", "tb", "seq", "fp8", "dist", "compact",
+              "ber", "profile", "variants", "harness")
 
 # kernel vs plain version on the card: difference 0 in every mode.  The
 # kernels and the plain versions do the same fp32 operations in the same
@@ -505,13 +522,18 @@ def launch_counters():
     from turbotpu_torch.dist import dma
     from turbotpu_torch.experiments import cost_breakdown, gather_inkernel
     from turbotpu_torch.siso import cuda_kernel as ck
-    return (ck.LAUNCHES, gather_inkernel.LAUNCHES, cost_breakdown.LAUNCHES,
-            dma.LAUNCHES)
+    return (ck.LAUNCHES, ck.FP8_LAUNCHES, gather_inkernel.LAUNCHES,
+            cost_breakdown.LAUNCHES, dma.LAUNCHES)
 
 
 def count_launches(results, fn):
     """Run `fn` with every launch count set to 0 just before and read just
-    after; add what it launched to the main path's totals."""
+    after; add what it launched to the main path's totals.  Returns (fn's
+    result, launches by kernel less the SISO1 calls the early-exit loop
+    launched ahead of a read and dropped, `turbo_cells.DROPPED`: the
+    launches that did an iteration's work, which the callers check)."""
+    from turbotpu_torch.decoder import turbo_cells
+    turbo_cells.DROPPED.clear()
     for counts in launch_counters():
         for name in counts:
             counts[name] = 0
@@ -520,7 +542,8 @@ def count_launches(results, fn):
     launched = {k: v for counts in launch_counters() for k, v in counts.items()}
     for name, n in launched.items():
         results[name]["launches"] = results[name].get("launches", 0) + n
-    return out, launched
+    return out, {k: v - turbo_cells.DROPPED.get(k, 0)
+                 for k, v in launched.items()}
 
 
 def only(launched, **expected):
@@ -1608,6 +1631,603 @@ def run_ber(dev, card, results):
          seconds=sum(r["wall_s"] for r in recs))
 
 
+# ---------------------------------------------------------------------------
+# fp8 extrinsics, the profile, the SISO variants, the harness, the sanitizer
+# ---------------------------------------------------------------------------
+
+FP8 = torch.float8_e4m3fn
+CHANS = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# (K, window, B) of the flagship decode and of C3's batch (fp32 streams,
+# UMTS K=5114, NII window 256), as the phases below use them
+FLAG = (6144, 256, 1024)
+C3_SHAPE = (5114, 256, 128)
+
+
+def same(a, b) -> bool:
+    """Bit equality; a float8 tensor compares as its bytes."""
+    if a.dtype == FP8:
+        a, b = a.view(torch.uint8), b.view(torch.uint8)
+    return torch.equal(a, b)
+
+
+def fp8_replaces(mode: str, fold: bool, bnd: bool) -> str:
+    """The TPU kernel an fp8 library replaces: _make_kernel with float8
+    extrinsic streams (_quantize_le :148-165 on the le store)."""
+    if bnd:
+        base = (f"{_PALLAS}:167 (_make_kernel boundary=True, nii=False and "
+                f"True, with_offset; specs :532-539, pallas_call at :576)")
+    elif fold:
+        base = (f"{_PALLAS}:505 (_build_call nii=True, fold_gather=True, "
+                f"pallas_call at :570)")
+    else:
+        base = (f"{_PALLAS}:505 (_build_call nii=True and False, pallas_call "
+                f"at :576)")
+    base += (" with ext_dtype=float8_e4m3fn (_quantize_le :148-165)")
+    if mode == "maxlog":
+        return base
+    return f"{_PALLAS}:57 (_mstar/_mstar_tree, mode={mode}) inside {base}"
+
+
+def fp8_libraries():
+    """(name, chan, mode, fold, bnd) of the eighteen fp8 libraries."""
+    from turbotpu_torch.siso import cuda_kernel as ck
+    return [(ck.fp8_name(dt, mode, fold, bnd), chan, mode, fold, bnd)
+            for fold, bnd in ck.FORMS for chan, dt in CHANS.items()
+            for mode in MODES]
+
+
+def check_fp8(dev, card, results):
+    """Phase `fp8`: the eighteen float8-extrinsic libraries of siso.cu
+    against their plain versions at difference 0 (le codes, window starts,
+    edges) at the shapes the int8 and bf16 rows use (K1/K5 bf16 at the
+    flagship shape, the f32 libraries at C3's, K4 at C5's seq=2 chunks),
+    timed there; at B=70 and 45, in one window and one segment, with masked
+    rows, and K4 at a chunk of one segment.  Then the main paths: the
+    flagship decode with fp8 extrinsics (lean and crc, bits and launches,
+    equal to its plain path on a small batch, timed beside int8 in turns),
+    every library through the entry points (turbo_decode NII, exact and
+    fold_gather; decode_seq_sharded seq=2 exact and NII) and one `cli c5
+    --ext-dtype float8_e4m3fn` run held to the bf16 run's frame errors."""
+    import contextlib
+    import io
+
+    from turbotpu_torch import cli, turbo_decode
+    from turbotpu_torch.decoder.turbo import DecoderConfig
+    from turbotpu_torch.dist.mesh import make_mesh
+    from turbotpu_torch.dist.seq_parallel import (chunk_sizing,
+                                                  decode_seq_sharded)
+    from turbotpu_torch.harness import c5
+    from turbotpu_torch.harness.bench import (bench_decode, flagship_config,
+                                              make_decode_inputs)
+    from turbotpu_torch.siso import cuda_kernel as ck
+    from turbotpu_torch.spec.qpp import qpp_perm
+    from turbotpu_torch.spec.umts import umts_perm
+
+    worst = {name: 0.0 for name, *_ in fp8_libraries()}
+    cases = []
+
+    def hold(name, got, want, **shape):
+        """Every tensor of `got` equal to `want`'s; record the case."""
+        errs = [max_diff(g, w) for g, w in zip(got, want)]
+        if not all(same(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{name} differs from its plain version at "
+                                 f"{shape}: {errs}")
+        worst[name] = max(worst[name], *errs)
+        cases.append({"name": name, **shape, "max_abs_err": max(errs)})
+
+    def timed_plain(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def cold(ls, lp, K, mode, scale, W, B):
+        """A real fp8 a-priori stream and real window starts."""
+        T = ls.shape[0]
+        return ck.siso_cells(ls, lp, torch.zeros((T, B), dtype=FP8,
+                                                 device=dev),
+                             K, mode, scale, window=W, nii_ckpt=torch.zeros(
+                                 (T // W, 8, B), device=dev))
+
+    # K1/K2/K3/K5 forms: bf16 channels at the flagship shape, f32 at C3's
+    lte = make_decode_inputs(FLAG[0], FLAG[2], seed=1, ebn0_db=1.0)
+    umts = umts_frames(C3_SHAPE[0], C3_SHAPE[2], dev)
+    for chan, dt in CHANS.items():
+        K, W, B = FLAG if chan == "bfloat16" else C3_SHAPE
+        inputs, perm = ((lte, qpp_perm(K)) if chan == "bfloat16" else
+                        (umts, umts_perm(K)))
+        ls1, lp1, ls2, lp2 = make_streams(inputs, K, W, dt, dev, perm)
+        T = ls1.shape[0]
+        n_win = T // W
+        idx = torch.from_numpy(np.concatenate([perm, np.arange(K, T)]).astype(
+            np.int32)).to(dev)
+        shape = {"K": K, "W": W, "B": B, "chan": chan, "ext": "float8_e4m3fn"}
+        for mode in MODES:
+            scale = 0.75 if mode == "maxlog" else 1.0
+            la, ain = cold(ls1, lp1, K, mode, scale, W, B)
+            for fold in (False, True):
+                name = ck.fp8_name(dt, mode, fold)
+                gather = idx if fold else None
+
+                def call():
+                    return ck.siso_cells(ls2, lp2, la, K, mode, scale,
+                                         nii_ckpt=ain, window=W,
+                                         gather_idx=gather)
+                got = call()
+                want, plain_ms = timed_plain(lambda: ck.siso_nii_plain(
+                    ls2, lp2, la, ain, K, W, scale, 0.0, mode,
+                    gather_idx=gather))
+                hold(name, (got[0], got[1][1:]), (want[0], want[1][1:]),
+                     contract="nii", mode=mode, **shape)
+                if fold:       # and equal to K1 on the materialised gather
+                    mat = ck.siso_cells(ls2, lp2, la.index_select(0, idx.long()), K, mode,
+                                        scale, nii_ckpt=ain, window=W)
+                    if not (same(got[0], mat[0])
+                            and same(got[1][1:], mat[1][1:])):
+                        raise AssertionError(f"{name} differs from the NII "
+                                             "kernel on the gathered stream")
+                bound, by = siso_bound_ms(T, B, n_win, dt.itemsize, 1, True,
+                                          False, mode, fold)
+                results[name].update(ms=time_launches(call, 20),
+                                     plain_ms=plain_ms, bound_ms=bound,
+                                     bound_by=by,
+                                     shape={**shape, "contract": "nii"})
+            # the exact contract of the plain library, at the same shape
+            got = ck.siso_cells(ls2, lp2, la, K, mode, scale, window=W)
+            want = ck.siso_exact_plain(ls2, lp2, la, K, W, scale, 0.0, mode)
+            hold(ck.fp8_name(dt, mode), (got,), (want,), contract="exact",
+                 mode=mode, **shape)
+
+    # K4: both boundary contracts at C5's seq=2 chunks (the last chunk, row
+    # offset C), edges from calls on the first and the last chunk
+    _, noisy = c5.make_batch(C5_K, C5_B, C5_EBN0, seed=0)
+    c5_inputs = tuple(torch.from_numpy(x).to(dev) for x in noisy)
+
+    def bnd_case(nii, mode, ls, lp, K, window, j, dt, shape, time_it=False):
+        C, W, n_win, KTp = chunk_sizing(K + 3, 2, window)
+        B = ls.shape[1]
+        scale = 0.75 if mode == "maxlog" else 1.0
+        first = (ls[:C], lp[:C])
+        cur = (ls[j * C:(j + 1) * C], lp[j * C:(j + 1) * C])
+        uni = torch.zeros((8, B), device=dev)
+        z = torch.zeros((C, B), dtype=FP8, device=dev)
+        opt = dict(window=W, row_offset=j * C)
+        _, a_edge, _ = ck.siso_cells(*first, z, K, mode, scale,
+                                     boundaries=(ck._e0(B, dev), uni),
+                                     window=W)
+        la, _, b_edge = ck.siso_cells(*cur, z, K, mode, scale,
+                                      boundaries=(uni, uni), **opt)
+        if nii:
+            tbl = ck.siso_cells(*cur, z, K, mode, scale, nii_boundaries=(
+                torch.zeros((n_win, 8, B), device=dev), uni, uni), **opt)[1]
+            kw = dict(opt, nii_boundaries=(tbl, a_edge, b_edge))
+            plain = lambda: ck.siso_bnd_nii_plain(
+                *cur, la, tbl, a_edge, b_edge, K, W, scale, 0.0, mode,
+                row_offset=j * C)
+        else:
+            kw = dict(opt, boundaries=(a_edge, b_edge))
+            plain = lambda: ck.siso_bnd_exact_plain(
+                *cur, la, a_edge, b_edge, K, W, scale, 0.0, mode,
+                row_offset=j * C)
+        call = lambda: ck.siso_cells(*cur, la, K, mode, scale, **kw)
+        got = list(call())
+        want, plain_ms = timed_plain(plain)
+        want = list(want)
+        if nii:                      # slot 0 of the table is never written
+            got[1], want[1] = got[1][1:], want[1][1:]
+        name = ck.fp8_name(dt, mode, bnd=True)
+        hold(name, got, want, contract="bnd_nii" if nii else "bnd_exact",
+             mode=mode, C=C, W=W, row_offset=j * C, **shape)
+        if time_it:
+            bound, by = siso_bound_ms(C, B, n_win, dt.itemsize, 1, nii,
+                                      False, mode, bnd=True)
+            results[name].update(
+                ms=time_launches(call, 10), plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by,
+                shape={**shape, "C": C, "W": W, "row_offset": j * C,
+                       "contract": "bnd_exact"})
+
+    for chan, dt in CHANS.items():
+        for nii, window in ((False, 0), (True, 256)):
+            C, W, _, KTp = chunk_sizing(C5_K + 3, 2, window)
+            ls, lp, _, _ = make_streams(c5_inputs, C5_K, W, dt, dev, KTp=KTp)
+            for mode in MODES:
+                bnd_case(nii, mode, ls, lp, C5_K, window, 1, dt,
+                         {"K": C5_K, "B": C5_B, "chan": chan},
+                         time_it=not nii)
+
+    # small shapes: every library and contract, every mode and channel type
+    small = ((168, 32, 70, 168), (40, 48, 37, 40), (40, 64, 37, 40),
+             (168, 32, 45, 150))
+    for chan, dt in CHANS.items():
+        for mode in MODES:
+            scale = 0.75 if mode == "maxlog" else 1.0
+            for K, W, B, K_real in small:
+                inputs = make_decode_inputs(K, B, seed=9, ebn0_db=1.0)
+                ls, lp, _, _ = make_streams(inputs, K, W, dt, dev)
+                T = ls.shape[0]
+                la, ain = cold(ls, lp, K_real, mode, scale, W, B)
+                idx = torch.from_numpy(np.random.default_rng(T + B).permutation(
+                    T).astype(np.int32)).to(dev)
+                shape = {"K": K, "K_real": K_real, "W": W, "B": B,
+                         "chan": chan, "mode": mode}
+                for fold in (False, True):
+                    gather = idx if fold else None
+                    got = ck.siso_cells(ls, lp, la, K_real, mode, scale,
+                                        window=W, nii_ckpt=ain,
+                                        gather_idx=gather)
+                    want = ck.siso_nii_plain(ls, lp, la, ain, K_real, W,
+                                             scale, 0.0, mode,
+                                             gather_idx=gather)
+                    hold(ck.fp8_name(dt, mode, fold), (got[0], got[1][1:]),
+                         (want[0], want[1][1:]), contract="nii", **shape)
+                got = ck.siso_cells(ls, lp, la, K_real, mode, scale, window=W)
+                want = ck.siso_exact_plain(ls, lp, la, K_real, W, scale, 0.0,
+                                           mode)
+                hold(ck.fp8_name(dt, mode), (got,), (want,),
+                     contract="exact", **shape)
+            # K4 at B=70 (chunks of 88 steps) and a chunk of one segment
+            for K_s, B_s in ((168, 70), (120, 37)):
+                C, W, _, KTp = chunk_sizing(K_s + 3, 2)
+                inputs = make_decode_inputs(K_s, B_s, seed=13, ebn0_db=1.0)
+                ls, lp, _, _ = make_streams(inputs, K_s, W, dt, dev, KTp=KTp)
+                for nii in (False, True):
+                    for j in (0, 1):
+                        bnd_case(nii, mode, ls, lp, K_s, 0, j, dt,
+                                 {"K": K_s, "B": B_s, "chan": chan})
+    for name in worst:
+        results[name]["max_abs_err"] = worst[name]
+    rec = {"card": card, "tolerance": 0.0, "cases": len(cases),
+           "kernels": {name: {k: results[name].get(k) for k in (
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "shape")} for name in worst}}
+
+    # main path: the flagship decode with fp8 extrinsics, full width
+    fp8_cfg = lambda **kw: flagship_config(**{
+        "K": FLAG[0], "window": FLAG[1], "ext_dtype": "float8_e4m3fn", **kw})
+    flag, bits = make_decode_inputs(FLAG[0], FLAG[2], seed=2, ebn0_db=2.0,
+                                    with_crc=True, return_bits=True)
+    flag = tuple(x.to(dev) for x in flag)
+    bits = torch.from_numpy(bits).to(dev)
+    name = ck.fp8_name(torch.bfloat16, "maxlog")
+    for early in ("none", "crc"):
+        (hard, iters, L), launched = count_launches(
+            results, lambda: turbo_decode(*flag, fp8_cfg(early_term=early)))
+        want = 12 if early == "none" else 2 * int(iters.max())
+        if not only(launched, **{name: want}):
+            raise AssertionError(f"fp8 {early} decode: {want} launches of "
+                                 f"{name} expected, counted {launched}")
+        if not bool(torch.isfinite(L).all()):
+            raise AssertionError("fp8 decode: L is not finite")
+        rec[f"flagship_{early}"] = {
+            "bit_errors": int((hard != bits).sum()),
+            "max_iters": int(iters.max()),
+            "mean_iters": float(iters.float().mean())}
+        if rec[f"flagship_{early}"]["bit_errors"]:
+            raise AssertionError(f"fp8 {early} decode at 2.0 dB: {rec}")
+        rec[f"small_{early}_vs_cpu_L_max_abs_diff"] = small_decode_vs_cpu(
+            fp8_cfg(K=168, window=32, early_term=early))
+    # ms per batch beside int8, in turns (int8, fp8, fp8, int8) at 1.0 dB
+    rec["ms_per_batch"] = {}
+    for early in ("none", "crc"):
+        runs = [bench_decode(fp8_cfg(early_term=early, ext_dtype=e),
+                             FLAG[2], n_timed=8, ebn0_db=1.0)
+                for e in ("int8", "float8_e4m3fn", "float8_e4m3fn", "int8")]
+        rec["ms_per_batch"][early] = {
+            "int8": [runs[0]["wall_s_per_batch"] * 1e3,
+                     runs[3]["wall_s_per_batch"] * 1e3],
+            "float8_e4m3fn": [runs[1]["wall_s_per_batch"] * 1e3,
+                              runs[2]["wall_s_per_batch"] * 1e3]}
+
+    # every library through the entry points, counts read after each
+    frames, fbits = make_decode_inputs(168, 64, seed=4, ebn0_db=4.0,
+                                       with_crc=True, return_bits=True)
+    frames = tuple(x.to(dev) for x in frames)
+    fbits = torch.from_numpy(fbits).to(dev)
+    paths = {}
+    for lib, chan, mode, fold, bnd in fp8_libraries():
+        base = DecoderConfig(K=168, n_iters=6, mode=mode, siso="cuda",
+                             io_dtype=chan, ext_dtype="float8_e4m3fn",
+                             window=32, early_term="crc")
+        if bnd:
+            runs = [lambda c=dataclasses.replace(base, nii=nii):
+                    decode_seq_sharded(make_mesh(1, 2, device=dev), c)(
+                        *frames) for nii in (False, True)]
+        elif fold:
+            runs = [lambda c=dataclasses.replace(base, nii=True,
+                                                 fold_gather=True):
+                    turbo_decode(*frames, c)]
+        else:
+            runs = [lambda c=dataclasses.replace(base, nii=nii):
+                    turbo_decode(*frames, c) for nii in (False, True)]
+        for run_one in runs:
+            (hard, _, _), launched = count_launches(results, run_one)
+            if not (launched[lib] > 0 and only(launched, **{lib: launched[lib]})):
+                raise AssertionError(f"{lib}: its entry-point decode "
+                                     f"launched {launched}")
+            if int((hard != fbits).sum()):
+                raise AssertionError(f"{lib}: bit errors at 4.0 dB")
+            paths[lib] = paths.get(lib, 0) + launched[lib]
+    rec["entry_point_launches"] = paths
+
+    # cli c5 --ext-dtype float8_e4m3fn, seq=2, full width, beside bf16
+    c5_recs = {}
+    for ext in ("bfloat16", "float8_e4m3fn"):
+        buf = io.StringIO()
+
+        def run_cli():
+            with contextlib.redirect_stdout(buf):
+                cli.main(["c5", "--k", str(C5_K), "--batch", str(C5_B),
+                          "--seq", "2", "--ext-dtype", ext, "--reps", "2"])
+        _, launched = count_launches(results, run_cli)
+        c5_recs[ext] = json.loads(buf.getvalue().strip().splitlines()[-1])
+        c5_recs[ext]["launches"] = {k: v for k, v in launched.items() if v}
+    fe, n = c5_recs["float8_e4m3fn"]["frame_errs"], C5_B
+    fe_ref = c5_recs["bfloat16"]["frame_errs"]
+    diff, band = fer_band(fe, n, fe_ref, n)
+    if not (c5_recs["float8_e4m3fn"]["launches"].get(
+            ck.fp8_name(torch.bfloat16, "maxlog", bnd=True), 0) > 0
+            and diff <= band):
+        raise AssertionError(f"cli c5 fp8: {c5_recs}")
+    rec["c5"] = {ext: {k: r[k] for k in ("wall_s", "mbit_per_s", "ber",
+                                         "fer", "frame_errs", "mean_iters",
+                                         "max_iters", "launches")}
+                 for ext, r in c5_recs.items()}
+    emit("fp8", **rec)
+
+
+def kernel_id(name: str) -> str:
+    """A kernel's own name in a profiler event's demangled signature
+    ("void (anonymous namespace)::nii_pass1<0, true, ...>(...)" ->
+    "nii_pass1")."""
+    import re
+    m = re.search(r"(\w+)\s*[<(]", name.replace("(anonymous namespace)::",
+                                                 ""))
+    return m.group(1) if m else name[:60]
+
+
+def trace_summary(path, exit_range: str, decode_range: str | None = None
+                  ) -> dict:
+    """What a trace of decodes shows.  The device's window is each decode's
+    device operations (those starting between its `decode_range` host
+    range's start and the next decode's), or all of them; in it: the busy
+    time and the idle share; at each early-exit host read (the end of an
+    `exit_range` host range) the idle gap it falls into, split at the
+    read's return into the wait before it (the card finishing, the host
+    waking) and the host's work after it until the next launch starts; the
+    largest gaps and the device operations that took the most time."""
+    from turbotpu_torch.harness import profiling
+    ops = profiling.device_ops(path)
+    if not ops:
+        raise AssertionError(f"the trace {path} holds no device activity")
+    starts = ([a[1] for a in profiling.annotations(path, decode_range)]
+              if decode_range else [])
+    bounds = list(zip(starts, starts[1:] + [math.inf])) or [
+        (-math.inf, math.inf)]
+    span = busy = 0.0
+    gaps = []
+    for lo, hi in bounds:
+        mine = [o for o in ops if lo <= o[1] < hi]
+        if not mine:
+            continue
+        t0, t1 = mine[0][1], max(s + d for _, s, d in mine)
+        g = profiling.idle_gaps(mine)
+        span += t1 - t0
+        busy += t1 - t0 - sum(x for _, x in g)
+        gaps += g
+    waits, after = [], []
+    for _, ts, dur in profiling.annotations(path, exit_range):
+        end = ts + dur
+        hit = next(((s, g) for s, g in gaps if s <= end <= s + g), None)
+        if hit:
+            waits.append(end - hit[0])
+            after.append(hit[0] + hit[1] - end)
+    by_name = {}
+    for name, _, dur in ops:
+        n, total = by_name.get(kernel_id(name), (0, 0.0))
+        by_name[kernel_id(name)] = (n + 1, total + dur)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    med = lambda xs: sorted(xs)[len(xs) // 2] if xs else None
+    return {
+        "decodes": len(starts), "span_ms": span / 1e3,
+        "device_busy_ms": busy / 1e3, "idle_share": 1 - busy / span,
+        "exit_reads": len(waits),
+        "exit_gap_us": [w + a for w, a in zip(waits, after)],
+        "exit_gap_share": sum(waits + after) / span,
+        "exit_gap_median_us": {"before_read_returns": med(waits),
+                               "host_after_read": med(after)},
+        "largest_gaps_us": sorted((g for _, g in gaps), reverse=True)[:10],
+        "top_device_ops": [{"name": k, "count": n, "ms": tot / 1e3}
+                           for k, (n, tot) in top],
+        "siso_kernels": sorted({kernel_id(n) for n, _, _ in ops
+                                if "pass" in n}),
+    }
+
+
+def device_summary(path, n_decodes: int) -> dict:
+    """What a device-only trace (no host activity recorded, so the host's
+    pace is the program's own) of `n_decodes` back-to-back decodes shows:
+    the span from the first device operation to the last, the busy time,
+    the idle share, and the idle gaps that follow the device-to-host copies
+    of the early-exit reads (`profiling.read_gaps`), per read and in all."""
+    from turbotpu_torch.harness import profiling
+    ops = profiling.device_ops(path)
+    if not ops:
+        raise AssertionError(f"the trace {path} holds no device activity")
+    t0, t1 = ops[0][1], max(s + d for _, s, d in ops)
+    idle = sum(g for _, g in profiling.idle_gaps(ops))
+    reads = [g for _, g in profiling.read_gaps(ops)]
+    return {"decodes": n_decodes, "span_ms": (t1 - t0) / 1e3,
+            "span_ms_per_decode": (t1 - t0) / 1e3 / n_decodes,
+            "device_busy_ms_per_decode": (t1 - t0 - idle) / 1e3 / n_decodes,
+            "idle_share": idle / (t1 - t0), "reads": len(reads),
+            "read_gap_us": reads,
+            "read_gap_ms_per_decode": sum(reads) / 1e3 / n_decodes,
+            "read_gap_share": sum(reads) / (t1 - t0),
+            "other_idle_share": (idle - sum(reads)) / (t1 - t0)}
+
+
+def run_profile(dev, card):
+    """Phase `profile`: `cli bench --profile` on the flagship (crc at 1.0
+    dB, and lean), which must write a trace that names the SISO kernels; the
+    top device operations, the idle share and the gaps at the early-exit
+    host reads, split at the read's return (host ranges recorded); then the
+    same decodes, and two C5 seq=2 exact decodes, under a device-only trace,
+    where the read gaps are the program's own (F3's measurement), beside
+    their CUDA-event time unprofiled."""
+    import contextlib
+    import io
+    import tempfile
+
+    from turbotpu_torch import cli, turbo_decode
+    from turbotpu_torch.dist.mesh import make_mesh
+    from turbotpu_torch.dist.seq_parallel import decode_seq_sharded
+    from turbotpu_torch.harness import c5, profiling
+    from turbotpu_torch.harness.bench import (event_ms, flagship_config,
+                                              make_decode_inputs)
+
+    rec = {"card": card}
+    n = 4                          # decodes in each device-only trace
+    with tempfile.TemporaryDirectory() as tmp:
+        for early in ("crc", "none"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli.main(["bench", "--k", str(FLAG[0]), "--batch",
+                          str(FLAG[2]), "--siso", "cuda", "--nii",
+                          "--window", str(FLAG[1]),
+                          "--io-dtype", "bfloat16", "--ext-dtype", "int8",
+                          "--early-term", early, "--ebn0", "1.0",
+                          "--profile", f"{tmp}/{early}"])
+            bench = json.loads(buf.getvalue().strip().splitlines()[-1])
+            summary = trace_summary(bench["trace"], "turbo.exit_read",
+                                    "turbo.decode")
+            if not any("pass1" in k for k in summary["siso_kernels"]):
+                raise AssertionError(f"the trace names no SISO kernel: "
+                                     f"{summary['siso_kernels']}")
+            cfg = flagship_config(K=FLAG[0], window=FLAG[1],
+                                  early_term=early)
+            inputs = tuple(x.to(dev) for x in make_decode_inputs(
+                FLAG[0], FLAG[2], seed=0, ebn0_db=1.0,
+                with_crc=early == "crc"))
+            run = lambda: turbo_decode(*inputs, cfg)
+            ms = event_ms(run, n)
+            with profiling.trace(f"{tmp}/{early}_device", host=False):
+                for _ in range(n):
+                    iters = run()[1]
+            rec[f"flagship_{early}"] = {
+                "max_iters": int(iters.max()), "ms_per_batch": ms,
+                "traced": summary,
+                "device_only": device_summary(
+                    f"{tmp}/{early}_device/{profiling.TRACE_FILE}", n)}
+        _, noisy = c5.make_batch(C5_K, C5_B, C5_EBN0, seed=0)
+        args = [torch.from_numpy(x).to(dev) for x in noisy]
+        decode = decode_seq_sharded(make_mesh(1, 2, device=dev),
+                                    c5.c5_config(K=C5_K))
+        ms = event_ms(lambda: decode(*args), 2)
+        with profiling.trace(f"{tmp}/c5"):
+            for _ in range(2):
+                iters = decode(*args)[1]
+        with profiling.trace(f"{tmp}/c5_device", host=False):
+            for _ in range(2):
+                decode(*args)
+        rec["c5_seq2_exact"] = {
+            "max_iters": int(iters.max()), "ms_per_batch": ms,
+            "traced": trace_summary(f"{tmp}/c5/{profiling.TRACE_FILE}",
+                                    "seq.exit_read"),
+            "device_only": device_summary(
+                f"{tmp}/c5_device/{profiling.TRACE_FILE}", 2)}
+    emit("profile", **rec)
+
+
+def check_variants(dev, card):
+    """Phase `variants`: the windowed SISO (`siso="window"`, W=128, Q=32)
+    and the associative-scan SISO (`siso="ascan"`) in one flagship-width
+    decode each (K=6144, max-log, scale 0.75): window on the card against
+    the same frames on the CPU, ascan against `siso="scan"` on the card;
+    hard bits and iteration counts equal, L within 1e-4; ms per batch."""
+    from turbotpu_torch import turbo_decode
+    from turbotpu_torch.decoder.turbo import DecoderConfig
+    from turbotpu_torch.harness.bench import event_ms, make_decode_inputs
+
+    rec = {"card": card}
+    for siso, ref, B, n_iters in (("window", "cpu", 8, 6),
+                                  ("ascan", "scan", 4, 2)):
+        cfg = DecoderConfig(K=FLAG[0], n_iters=n_iters, mode="maxlog",
+                            ext_scale=0.75, siso=siso, early_term="crc")
+        inputs, bits = make_decode_inputs(FLAG[0], B, seed=5, ebn0_db=1.0,
+                                          with_crc=True, return_bits=True)
+        got = turbo_decode(*inputs, cfg)
+        want = (turbo_decode(*inputs, cfg, device="cpu") if ref == "cpu" else
+                turbo_decode(*inputs, dataclasses.replace(cfg, siso="scan")))
+        diff = float((got[2].cpu() - want[2].cpu()).abs().max())
+        if not (torch.equal(got[0].cpu(), want[0].cpu())
+                and torch.equal(got[1].cpu(), want[1].cpu())
+                and diff <= 1e-4):
+            raise AssertionError(f"siso={siso} differs from {ref}: L {diff}")
+        dev_in = tuple(x.to(dev) for x in inputs)
+        rec[siso] = {"B": B, "n_iters": n_iters, "against": ref,
+                     "L_max_abs_diff": diff,
+                     "bit_errors": int((got[0].cpu().numpy() != bits).sum()),
+                     "iters": got[1].tolist(),
+                     "ms_per_batch": event_ms(
+                         lambda: turbo_decode(*dev_in, cfg), 2)}
+    emit("variants", **rec)
+
+
+def run_harness(dev, card):
+    """Phase `harness`: `cli scaling --devices 1` (one card: data=1 is the
+    measurement), `cli supervise -- ber --config c1` with a frame cap (the
+    child on the card), and `harness.debug.checked` around the flagship
+    decode (passes) and around one whose input holds a NaN (raises)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from turbotpu_torch import cli, turbo_decode
+    from turbotpu_torch.harness import debug
+    from turbotpu_torch.harness.bench import flagship_config, make_decode_inputs
+
+    rec = {"card": card}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["scaling", "--k", str(FLAG[0]), "--per-device-batch",
+                  str(FLAG[2]), "--devices", "1", "--reps", "4"])
+    rec["scaling"] = [json.loads(x) for x in buf.getvalue().splitlines()]
+    if not (len(rec["scaling"]) == 1
+            and rec["scaling"][0]["rows_equal_one_device"]
+            and rec["scaling"][0]["mbit_per_s"] > 0):
+        raise AssertionError(f"cli scaling: {rec['scaling']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        res = f"{tmp}/c1.jsonl"
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["supervise", "--results", res, "--", "ber", "--config",
+                      "c1", "--max-frames", "8", "--results", res])
+        out = json.loads(buf.getvalue().strip().splitlines()[-1])
+        points = [json.loads(x) for x in open(res).read().splitlines()]
+    if not (out == {"restarts": 0, "ok": True} and len(points) == 4
+            and all(p["frames"] >= 8 for p in points)):
+        raise AssertionError(f"cli supervise: {out}, {points}")
+    rec["supervise"] = {"restarts": out["restarts"], "points": len(points),
+                        "frames": [p["frames"] for p in points],
+                        "seconds": time.perf_counter() - t0}
+    cfg = flagship_config(K=FLAG[0], window=FLAG[1])
+    inputs = tuple(x.to(dev) for x in make_decode_inputs(FLAG[0], FLAG[2],
+                                                         seed=2))
+    debug.checked(turbo_decode)(*inputs, cfg)
+    bad = inputs[0].clone()
+    bad[3, 7] = float("nan")
+    try:
+        debug.checked(turbo_decode)(bad, *inputs[1:], cfg)
+    except ValueError as e:
+        rec["checked_nan"] = str(e)
+    else:
+        raise AssertionError("checked() let a non-finite decode through")
+    emit("harness", **rec)
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1617,6 +2237,7 @@ def main(argv) -> int:
     from turbotpu_torch.dist import dma
     from turbotpu_torch.experiments import cost_breakdown, gather_inkernel
     from turbotpu_torch.harness.bench import card_info
+    from turbotpu_torch.harness.profiling import PTXAS_FLAGS as PTXAS
     from turbotpu_torch.siso.cuda_kernel import (BND_CONTRACTS, CONTRACTS,
                                                  build_targets, kernel_name)
 
@@ -1644,17 +2265,24 @@ def main(argv) -> int:
 
     # every kernel of the port, one nvcc process each, all started together
     t0 = time.perf_counter()
-    flags = ("-Xptxas", "-v") if "--ptxas" in argv else ()
-    libs = _build.build(build_targets() + [gather_inkernel.TARGET,
-                                           cost_breakdown.TARGET,
-                                           dma.TARGET], flags)
+    targets = build_targets() + [gather_inkernel.TARGET,
+                                 cost_breakdown.TARGET, dma.TARGET]
+    libs = _build.build(targets)
     for name, defines in libs:
-        _build.load(name, defines, flags)
+        _build.load(name, defines)
     emit("build", seconds=time.perf_counter() - t0, libraries=len(libs),
          nvcc_seconds={" ".join((t[0],) + t[1]): s
                        for t, s in _build.build_seconds.items()},
          directory=str(_build.BUILD_DIR.relative_to(
              _build.BUILD_DIR.parent.parent)))
+    if "--ptxas" in argv:
+        # registers, spills, stack and shared memory of every kernel
+        from turbotpu_torch.harness.profiling import compiled_stats
+        _build.build(targets, PTXAS)       # all side by side first
+        emit("ptxas", libraries={" ".join((t[0],) + t[1]): [
+            {k: f[k] for k in ("function", "registers", "spill_stores",
+                               "spill_loads", "stack", "smem")}
+            for f in compiled_stats(t)] for t in targets})
 
     results = {kernel_name(nii, mode, fold): {
         "name": kernel_name(nii, mode, fold), "route": "cuda",
@@ -1664,6 +2292,10 @@ def main(argv) -> int:
         "name": kernel_name(nii, mode, bnd=True), "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": bnd_replaces(nii, mode),
         "library_ms": None} for mode in MODES for nii in BND_CONTRACTS})
+    results.update({name: {
+        "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": fp8_replaces(mode, fold, bnd), "library_ms": None}
+        for name, _, mode, fold, bnd in fp8_libraries()})
     results["row_gather"] = {
         "name": "row_gather", "route": "cuda",
         "source": "turbotpu_torch/csrc/row_gather.cu",
@@ -1689,9 +2321,13 @@ def main(argv) -> int:
            "calibrate": lambda: check_calibrate(dev, card, results),
            "tb": lambda: run_tb(dev, card, results),
            "seq": lambda: check_seq(dev, card, results),
+           "fp8": lambda: check_fp8(dev, card, results),
            "dist": lambda: check_dist(dev, card, results),
            "compact": lambda: run_compact(dev, card, results),
-           "ber": lambda: run_ber(dev, card, results)}
+           "ber": lambda: run_ber(dev, card, results),
+           "profile": lambda: run_profile(dev, card),
+           "variants": lambda: check_variants(dev, card),
+           "harness": lambda: run_harness(dev, card)}
     for phase in ALL_PHASES:
         if phase in phases:
             t0 = time.perf_counter()

@@ -149,12 +149,22 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
     (dict(siso="window"), "windowed"),
 ])
 def test_out_of_slice_options_raise(cfg_kw, what):
-    """(e) What the port does not hold yet raises NotImplementedError naming
-    the missing piece; nothing falls through to another path."""
+    """(e) The options that earlier slices refused (float8 extrinsics, the
+    associative-scan and the windowed SISO) decode now, through their own
+    code (no fall-through to another path): on the same tiny decode (K=40,
+    B=2) hard bits and iteration counts equal the JAX package's, L within
+    1e-4."""
     inputs = make_decode_inputs(40, 2, seed=0)
-    with pytest.raises(NotImplementedError, match=what):
-        turbo_decode(*inputs, DecoderConfig(K=40, n_iters=1, **cfg_kw),
-                     device="cpu")
+    cfg = DecoderConfig(K=40, n_iters=2, **cfg_kw)
+    jcfg = JaxConfig(**{**dataclasses.asdict(cfg), "siso": {
+        "cuda": "pallas"}.get(cfg.siso, cfg.siso)})
+    siso = get_siso(cfg) if cfg.siso != "cuda" else None
+    assert siso is None or what[:5] in siso.__name__
+    hj, ij, Lj = jax_decode(*[jnp.asarray(x.numpy()) for x in inputs], jcfg)
+    ht, it, Lt = turbo_decode(*inputs, cfg, device="cpu")
+    np.testing.assert_array_equal(ht.numpy(), np.asarray(hj))
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_allclose(Lt.numpy(), np.asarray(Lj), atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("cfg_kw,tables", [

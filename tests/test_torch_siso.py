@@ -207,9 +207,17 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="nii_ckpt"):
         ck.siso_cells(z(), z(), z(), K, "maxlog", window=32,
                       nii_ckpt=torch.zeros((3, 8, B)))
-    if hasattr(torch, "float8_e4m3fn"):
-        with pytest.raises(NotImplementedError, match="float8"):
-            ck.siso_cells(z(), z(), z().to(torch.float8_e4m3fn), K, "maxlog")
+    # float8_e4m3fn extrinsics are taken: on the same a-priori values the
+    # fp8 call's le is the fp32 call's, saturated and rounded to fp8
+    rng = np.random.default_rng(2)
+    r = lambda: torch.from_numpy((rng.normal(size=(T, B)) * 4).astype(
+        np.float32))
+    ls, lp, la = r(), r(), r().to(torch.float8_e4m3fn)
+    le8 = ck.siso_cells(ls, lp, la, K, "maxlog", 0.75)
+    le32 = ck.siso_cells(ls, lp, la.to(torch.float32), K, "maxlog", 0.75)
+    assert le8.dtype == torch.float8_e4m3fn
+    assert torch.equal(le8.view(torch.uint8), ck._quantize_le(
+        le32, torch.float8_e4m3fn, 0.0).view(torch.uint8))
 
 
 @pytest.mark.cuda

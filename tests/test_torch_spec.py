@@ -1,5 +1,12 @@
 """The port's own copies of the framework-free modules (spec tables, CRC,
-encoder, scalar BCJR) against the JAX package's, bit for bit."""
+encoder, scalar BCJR) against the JAX package's, bit for bit; and the
+port's import hygiene: no module of turbotpu_torch, and not chip_smoke.py,
+imports jax or the JAX package."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -122,3 +129,42 @@ def test_public_names_equal_the_reference():
             assert obj.__module__.startswith("turbotpu_torch."), name
     with pytest.raises(AttributeError):
         turbotpu_torch.no_such_name
+
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted(str(p.relative_to(REPO)) for p in
+                    (REPO / "turbotpu_torch").rglob("*.py")) + ["chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "turbotpu")
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_port_source_imports_no_jax(path):
+    """Every import statement of every module of the port (the harness,
+    SISO variants, golden and oracle modules of the last slice included)
+    names neither jax nor the JAX package; relative imports stay inside the
+    port."""
+    tree = ast.parse((REPO / path).read_text(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        bad = [n for n in names if n.split(".")[0] in FORBIDDEN]
+        assert not bad, f"{path} imports {bad}"
+
+
+def test_every_port_module_imports_without_jax():
+    """Importing every module of the port in a fresh interpreter loads
+    neither jax nor the JAX package."""
+    modules = [p[:-3].replace("/", ".").removesuffix(".__init__")
+               for p in PORT_FILES if p.startswith("turbotpu_torch/")]
+    code = ("import sys\n"
+            f"for m in {modules!r}:\n"
+            "    __import__(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=300)

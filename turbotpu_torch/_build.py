@@ -31,6 +31,8 @@ Target = tuple[str, tuple[str, ...]]     # (source name, -D defines)
 
 _loaded: dict[Target, ctypes.CDLL] = {}
 build_seconds: dict[Target, float] = {}  # seconds nvcc took (0 if cached)
+build_count = 0      # nvcc processes started by this process
+                     # (harness/profiling.py::compile_count_guard reads it)
 
 
 def find_nvcc() -> str:
@@ -55,8 +57,9 @@ def _paths(target: Target, extra_flags: tuple[str, ...]) -> tuple[Path, Path]:
 
 def build(targets, extra_flags: tuple[str, ...] = ()) -> dict[Target, Path]:
     """Build the targets, one nvcc process each, all started together.
-    Returns target -> library path.  With extra_flags the compiler's output
-    (for example the report of -Xptxas -v) is printed."""
+    Returns target -> library path.  The compiler's output (for example the
+    report of -Xptxas -v) is kept beside each library, as `<library>.log`."""
+    global build_count
     BUILD_DIR.mkdir(exist_ok=True)
     out, running = {}, []
     for target in targets:
@@ -70,6 +73,7 @@ def build(targets, extra_flags: tuple[str, ...] = ()) -> dict[Target, Path]:
                "-o", str(tmp), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
+        build_count += 1
         running.append((target, lib, tmp, cmd, proc, time.perf_counter()))
     for target, lib, tmp, cmd, proc, t0 in running:
         log, _ = proc.communicate()
@@ -79,10 +83,14 @@ def build(targets, extra_flags: tuple[str, ...] = ()) -> dict[Target, Path]:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}) on {target[0]}.cu "
                 f"{' '.join(target[1])}:\n{' '.join(cmd)}\n{log}")
-        if extra_flags and log.strip():
-            print(f"{target[0]}.cu {' '.join(target[1])}\n{log}")
+        lib.with_suffix(".log").write_text(log)
         os.replace(tmp, lib)      # atomic: a half-written library never loads
     return out
+
+
+def library(target: Target, extra_flags: tuple[str, ...] = ()) -> Path:
+    """Where `build` puts the library of `target` (built or not)."""
+    return _paths(target, extra_flags)[1]
 
 
 def load(name: str, defines: tuple[str, ...] = (),

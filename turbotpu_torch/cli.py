@@ -1,11 +1,13 @@
 """Command-line entry point of the port: the Monte-Carlo BER/FER sweep, the
-decode throughput benchmark, the transport-block sweep and the C5 sharded
-decode.
+decode throughput benchmark (and its profile), the transport-block sweep,
+the C5 sharded decode, the scaling benchmark and the failure-recovery
+supervisor.
 
-Counterpart of the `ber`, `bench`, `tb` and `c5` subcommands of
-turbotpu/cli.py, with --device in place of --platform (`bench` times with
-CUDA events and takes the card only; its --profile waits for
-harness/profiling.py), and `c5 --backend local|process` for the mesh.
+Counterpart of the subcommands of turbotpu/cli.py (`ber`, `bench`, `tb`,
+`c5`, `scaling`, `supervise`), with --device in place of --platform
+(`bench` and `scaling` time with CUDA events and take the card only; `bench
+--profile DIR` writes a torch.profiler trace to DIR), and `c5 --backend
+local|process` for the mesh.
 
 Examples:
   python -m turbotpu_torch.cli ber --config c4
@@ -15,14 +17,22 @@ Examples:
   python -m turbotpu_torch.cli bench --k 6144 --batch 1024 --siso cuda --nii \
       --window 256 --io-dtype bfloat16 --ext-dtype int8 --early-term crc --compact 3
   python -m turbotpu_torch.cli tb --config c6
+  python -m turbotpu_torch.cli bench --k 6144 --batch 1024 --siso cuda --nii \
+      --window 256 --io-dtype bfloat16 --ext-dtype float8_e4m3fn \
+      --early-term crc --profile /tmp/trace
   python -m turbotpu_torch.cli c5 --seq 2 --nii --window 256
+  python -m turbotpu_torch.cli scaling --devices 1
+  python -m turbotpu_torch.cli supervise --results results/ber_torch.jsonl \
+      -- ber --config c1
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
+from pathlib import Path
 
 
 def main(argv=None):
@@ -43,13 +53,15 @@ def main(argv=None):
     ber.add_argument("--interleaver", choices=["lte", "umts"], default="lte")
     ber.add_argument("--early-term", choices=["none", "crc", "sign"],
                      default="none")
-    ber.add_argument("--siso", default="scan", choices=["scan", "cuda"])
+    ber.add_argument("--siso", default="scan",
+                     choices=["scan", "cuda", "ascan", "window"])
     ber.add_argument("--window", type=int, default=0)
     ber.add_argument("--io-dtype", default="float32",
                      choices=["float32", "bfloat16"],
                      help="channel-LLR stream type on the kernel path")
     ber.add_argument("--ext-dtype", default="",
-                     choices=["", "float32", "bfloat16", "int8"],
+                     choices=["", "float32", "bfloat16", "float8_e4m3fn",
+                              "int8"],
                      help="extrinsic stream type (default: io-dtype)")
     ber.add_argument("--nii", action="store_true",
                      help="kernel path: windowed next-iteration "
@@ -75,7 +87,9 @@ def main(argv=None):
                      help="per --k-mix rate-matched lengths (with --k-mix "
                           "but no --e-mix, --E is split proportionally)")
     ber.add_argument("--min-frame-errors", type=int, default=50)
-    ber.add_argument("--max-frames", type=int, default=200_000)
+    ber.add_argument("--max-frames", type=int, default=None,
+                     help="frame cap per grid point (default 200000; with "
+                          "--config it replaces the configuration's)")
     ber.add_argument("--seed", type=int, default=0)
     ber.add_argument("--results", default="results/ber_torch.jsonl")
     ber.add_argument("--no-resume", action="store_true")
@@ -99,13 +113,15 @@ def main(argv=None):
     bench.add_argument("--iters", type=int, default=6)
     bench.add_argument("--mode", choices=["logmap", "maxlog", "linlog"],
                        default="maxlog")
-    bench.add_argument("--siso", default="scan", choices=["scan", "cuda"])
+    bench.add_argument("--siso", default="scan",
+                       choices=["scan", "cuda", "ascan", "window"])
     bench.add_argument("--window", type=int, default=0)
     bench.add_argument("--io-dtype", default="float32",
                        choices=["float32", "bfloat16"],
                        help="channel-LLR stream type on the kernel path")
     bench.add_argument("--ext-dtype", default="",
-                       choices=["", "float32", "bfloat16", "int8"],
+                       choices=["", "float32", "bfloat16", "float8_e4m3fn",
+                              "int8"],
                        help="extrinsic stream type (default: io-dtype)")
     bench.add_argument("--nii", action="store_true",
                        help="kernel path: windowed next-iteration "
@@ -124,6 +140,41 @@ def main(argv=None):
                             "harness/compact.py)")
     bench.add_argument("--n-super", type=int, default=8,
                        help="super-batches per compaction pass")
+    bench.add_argument("--profile", default=None, metavar="DIR",
+                       help="write a torch.profiler trace (CPU and CUDA "
+                            "activity) of two timed decodes to DIR/trace.json "
+                            "after one warm-up")
+
+    sc = sub.add_parser("scaling", help="data-parallel scaling efficiency "
+                                        "(on the card)")
+    sc.add_argument("--k", type=int, default=6144)
+    sc.add_argument("--per-device-batch", type=int, default=1024)
+    sc.add_argument("--iters", type=int, default=6)
+    sc.add_argument("--siso", default="cuda",
+                    choices=["scan", "cuda", "ascan", "window"])
+    sc.add_argument("--devices", type=int, nargs="+", default=None,
+                    help="data-axis sizes of the local meshes (default: 1 "
+                         "and the card count); on one card only 1 is a "
+                         "measurement, larger meshes check the structure")
+    sc.add_argument("--reps", type=int, default=8)
+    sc.add_argument("--json-out", default=None,
+                    help="also write the records to this JSON file")
+
+    sup = sub.add_parser(
+        "supervise",
+        help="run a turbotpu_torch command under the failure-recovery "
+             "supervisor: relaunch on crash or results-file stall, resuming "
+             "from the JSONL checkpoint")
+    sup.add_argument("--max-restarts", type=int, default=3)
+    sup.add_argument("--stall-timeout", type=float, default=None,
+                     help="seconds without results-file growth before the "
+                          "run is declared hung and relaunched")
+    sup.add_argument("--results", default="results/ber_torch.jsonl",
+                     help="results file watched for progress (must match "
+                          "the wrapped command's --results)")
+    sup.add_argument("rest", nargs=argparse.REMAINDER,
+                     help="the turbotpu_torch command to supervise, e.g. "
+                          "supervise -- ber --config c4")
 
     tb = sub.add_parser("tb", help="transport-block Monte-Carlo: TB > 6144 "
                         "bits through segmentation, per-block rate "
@@ -180,7 +231,8 @@ def main(argv=None):
                          "alphas inherited across half-iterations)")
     c5.add_argument("--window", type=int, default=0)
     c5.add_argument("--ext-dtype", default="",
-                    choices=["", "float32", "bfloat16", "int8"],
+                    choices=["", "float32", "bfloat16", "float8_e4m3fn",
+                              "int8"],
                     help="extrinsic/exchange stream type (default: io-dtype)")
     c5.add_argument("--groups", type=int, default=1,
                     help="seq_groups: independent batch splits of whole "
@@ -212,10 +264,44 @@ def main(argv=None):
             rec = bench_compaction(cfg, args.batch, args.ebn0,
                                    n_super=args.n_super,
                                    stage1_iters=args.compact)
+        elif args.profile:
+            from .harness.profiling import TRACE_FILE, trace
+            bench_decode(cfg, args.batch, n_timed=1, ebn0_db=args.ebn0)
+            with trace(args.profile):
+                rec = bench_decode(cfg, args.batch, n_timed=2, n_warmup=0,
+                                   ebn0_db=args.ebn0)
+            rec["trace"] = str(Path(args.profile) / TRACE_FILE)
+            print(f"profile written to {rec['trace']}", file=sys.stderr)
         else:
             rec = bench_decode(cfg, args.batch, n_timed=args.reps,
                                ebn0_db=args.ebn0)
         print(json.dumps({**rec, "card": card_info()}))
+        return 0
+
+    if args.cmd == "scaling":
+        from .harness.bench import card_info
+        from .harness.scaling import bench_scaling
+        cfg = DecoderConfig(K=args.k, n_iters=args.iters, mode="maxlog",
+                            siso=args.siso)
+        recs = bench_scaling(cfg, args.per_device_batch, args.devices,
+                             n_timed=args.reps)
+        card = card_info()
+        for rec in recs:
+            print(json.dumps({**rec, "card": card}))
+        if args.json_out:
+            Path(args.json_out).write_text(json.dumps(recs, indent=1))
+        return 0
+
+    if args.cmd == "supervise":
+        from .harness.supervisor import supervise
+        rest = [a for a in args.rest if a != "--"]
+        if not rest:
+            ap.error("supervise needs a command after --")
+        argv_child = [sys.executable, "-m", "turbotpu_torch.cli"] + rest
+        restarts = supervise([argv_child], max_restarts=args.max_restarts,
+                             stall_timeout_s=args.stall_timeout,
+                             results_path=args.results)
+        print(json.dumps({"restarts": restarts, "ok": True}))
         return 0
 
     if args.cmd == "c5":
@@ -258,6 +344,9 @@ def main(argv=None):
         cfgs = ALL[args.config]
         if not isinstance(cfgs, tuple):
             cfgs = (cfgs,)
+        if args.max_frames is not None:
+            cfgs = tuple(dataclasses.replace(c, max_frames=args.max_frames)
+                         for c in cfgs)
     else:
         dec = DecoderConfig(K=args.k, n_iters=args.iters, mode=args.mode,
                             io_dtype=args.io_dtype, nii=args.nii,
@@ -275,7 +364,8 @@ def main(argv=None):
                           channel=args.channel,
                           use_crc=args.early_term == "crc",
                           min_frame_errors=args.min_frame_errors,
-                          max_frames=args.max_frames, seed=args.seed),)
+                          max_frames=args.max_frames or 200_000,
+                          seed=args.seed),)
     for cfg in cfgs:
         simulate_ber(cfg, results_path=args.results,
                      resume=not args.no_resume,

@@ -62,9 +62,12 @@
 // explicit __fadd_rn/__fmul_rn (no FMA contraction), renormalisation by the
 // 8-state max after every 8 steps counted from the window start, alphas
 // stored before the step and un-renormalised inside a block, gamma(1,1)=A+P
-// formed first, int8 codes rounded half-to-even (rintf).
+// formed first, int8 codes rounded half-to-even (rintf), float8_e4m3fn codes
+// saturated at +-448 and rounded to nearest even (the reference's
+// _quantize_le before XLA's convert).
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -122,6 +125,7 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 __device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 v) { return float(v); }
 
 __device__ __forceinline__ void st_le(float* p, float v, float) { *p = v; }
 __device__ __forceinline__ void st_le(__nv_bfloat16* p, float v, float) {
@@ -132,6 +136,12 @@ __device__ __forceinline__ void st_le(int8_t* p, float v, float inv_q) {
   float q = rintf(__fmul_rn(v, inv_q));
   q = fminf(fmaxf(q, -127.0f), 127.0f);
   *p = (int8_t)(int)q;
+}
+__device__ __forceinline__ void st_le(__nv_fp8_e4m3* p, float v, float) {
+  // the reference's _quantize_le: saturate at the format's largest finite
+  // value (e4m3fn has no inf), then round to nearest even
+  v = fminf(fmaxf(v, -448.0f), 448.0f);
+  p->__x = __nv_cvt_float_to_fp8(v, __NV_SATFINITE, __NV_E4M3);
 }
 
 // ---- recursion steps -----------------------------------------------------
@@ -819,7 +829,8 @@ cudaError_t launch(bool nii, const void* ls, const void* lp, const void* la,
 // One library holds one variant, chosen at compile time:
 //   -DSISO_MODE=  0 max-log, 1 linlog, 2 log-MAP
 //   -DSISO_CHAN=  0 float32, 1 bfloat16          (ls, lp)
-//   -DSISO_EXT=   0 float32, 1 bfloat16, 2 int8  (la in, le out)
+//   -DSISO_EXT=   0 float32, 1 bfloat16, 2 int8, 3 float8_e4m3fn
+//                 (la in, le out)
 //   -DSISO_FOLD=  0 (default), or 1: the NII contract with the folded read
 //                 (K5) alone
 //   -DSISO_BND=   0 (default), or 1: the NII and exact contracts in their
@@ -832,7 +843,7 @@ cudaError_t launch(bool nii, const void* ls, const void* lp, const void* la,
 #error "SISO_FOLD and SISO_BND are separate libraries"
 #endif
 #if SISO_MODE < 0 || SISO_MODE > 2 || SISO_CHAN < 0 || SISO_CHAN > 1 || \
-    SISO_EXT < 0 || SISO_EXT > 2
+    SISO_EXT < 0 || SISO_EXT > 3
 #error "unknown SISO_MODE, SISO_CHAN or SISO_EXT"
 #endif
 
@@ -841,6 +852,7 @@ template <int CODE> struct StreamType;
 template <> struct StreamType<0> { using type = float; };
 template <> struct StreamType<1> { using type = __nv_bfloat16; };
 template <> struct StreamType<2> { using type = int8_t; };
+template <> struct StreamType<3> { using type = __nv_fp8_e4m3; };
 }  // namespace
 
 // The entry of every library.  passes: 3 for a call, 1 or 2 for that pass

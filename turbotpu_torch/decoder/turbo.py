@@ -18,6 +18,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .._device import resolve_device
 from ..siso.scan import siso_decode_scan
@@ -34,8 +35,7 @@ class DecoderConfig:
     """Static decode configuration.  Same fields and defaults as the JAX
     package's DecoderConfig, so a configuration carries over
     (convert.config_from_dict); the fused-kernel path is `siso="cuda"`
-    where the JAX package says "pallas".  Values this port does not have yet
-    raise NotImplementedError when a decode is asked for."""
+    where the JAX package says "pallas"."""
     K: int
     n_iters: int = 8
     mode: str = "logmap"            # "logmap" | "maxlog" | "linlog"
@@ -51,7 +51,8 @@ class DecoderConfig:
                                     # metrics stay fp32)
     ext_dtype: str = ""             # extrinsic stream type (la/le) on the
                                     # kernel path; "" inherits io_dtype.
-                                    # "int8" stores codes of step ext_qscale
+                                    # "int8" stores codes of step ext_qscale,
+                                    # "float8_e4m3fn" saturates at +-448
     ext_qscale: float = 0.25        # int8 extrinsic quantisation step
                                     # (LLR units per code); range +-31.75.
                                     # Ignored unless ext_dtype == "int8"
@@ -104,10 +105,12 @@ def get_siso(cfg: DecoderConfig) -> SisoFn:
     if cfg.siso == "cuda":
         from ..siso.cuda_kernel import siso_decode_cuda
         return siso_decode_cuda
-    if cfg.siso in ("ascan", "window"):
-        raise NotImplementedError(
-            f"siso={cfg.siso!r}: siso/ascan.py and siso/windowed.py are not "
-            "ported")
+    if cfg.siso == "ascan":
+        from ..siso.ascan import siso_decode_ascan
+        return siso_decode_ascan
+    if cfg.siso == "window":
+        from ..siso.windowed import make_windowed_siso
+        return make_windowed_siso(cfg.window or 128)
     raise ValueError(f"unknown siso impl {cfg.siso!r}")
 
 
@@ -155,10 +158,20 @@ def turbo_decode(ls, lp1, lp2, tail1, tail2, cfg: DecoderConfig,
     if perm_b is not None and (perm_b.shape != (B, K) or inv_b.shape != (B, K)):
         raise ValueError(f"per-codeword tables must be {(B, K)}, got "
                          f"{tuple(perm_b.shape)} and {tuple(inv_b.shape)}")
-    if cfg.siso == "cuda":
-        from .turbo_cells import turbo_decode_cells
-        return turbo_decode_cells(ls, lp1, lp2, tail1, tail2, cfg,
-                                  perm_b=perm_b, inv_b=inv_b)
+    with record_function("turbo.decode"):
+        if cfg.siso == "cuda":
+            from .turbo_cells import turbo_decode_cells
+            return turbo_decode_cells(ls, lp1, lp2, tail1, tail2, cfg,
+                                      perm_b=perm_b, inv_b=inv_b)
+        return _decode_generic(ls, lp1, lp2, tail1, tail2, cfg, perm_b,
+                               inv_b)
+
+
+def _decode_generic(ls, lp1, lp2, tail1, tail2, cfg, perm_b, inv_b):
+    """The loop around a batch-major SISO function (every siso but
+    "cuda"), on the device the tensors lie on."""
+    dev = ls.device
+    B, K = ls.shape
     siso = get_siso(cfg)
     scale = cfg.resolved_ext_scale()
 

@@ -16,19 +16,42 @@ the raw interleaved-order le2, and one de-interleave remains: after the loop
 for the outputs, plus one per iteration where early termination needs the
 natural order for its check.  For a mixed-K batch or the exact contract the
 option is ignored and the materialised gathers run, as in the JAX package.
+
+The early-terminated loop (crc, sign) reads "every codeword done" on the
+host once per iteration, where the reference's `lax.while_loop` stays on the
+device; the next iteration's first SISO call is launched before the host
+waits for the read, so the card does not idle at it (see the loop).
+Extrinsic streams of type float8_e4m3fn are carried as their bytes (uint8).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
-from ..siso.cuda_kernel import BIG, _round_up, siso_cells, window_len
+from ..siso.cuda_kernel import (BIG, FP8, _round_up, launch_count,
+                                siso_cells, window_len)
 from .early_term import _crc_check_matrix_np
 from .turbo import DecoderConfig
 
 _STREAM_TYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-                 "int8": torch.int8}
+                 "int8": torch.int8, "float8_e4m3fn": FP8}
+
+
+# SISO1 calls the early-exit loop launched ahead of a read and dropped because
+# every codeword was done, by the launch counter they added to (the counts in
+# siso/cuda_kernel.py include them): the kernel launches that did an
+# iteration's work are the counts less these.
+DROPPED = {}
+
+
+def carry_type(dte: torch.dtype) -> torch.dtype:
+    """The type the loops carry an extrinsic stream of type `dte` in:
+    float8 as its bytes (uint8), on which every gather, select and
+    collective is implemented; the kernels and the LLR read them through a
+    view.  Other types as they are."""
+    return torch.uint8 if dte == FP8 else dte
 
 
 def time_major_index(tab: torch.Tensor, KTp: int) -> torch.Tensor:
@@ -59,9 +82,6 @@ def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
     if cfg.early_term not in ("none", "crc", "sign"):
         raise ValueError(f"unknown early_term {cfg.early_term!r}")
     ext_dt, qs = cfg.ext_io()
-    if ext_dt.startswith("float8"):
-        raise NotImplementedError(
-            f"ext_dtype={ext_dt!r}: float8 extrinsic streams are not ported")
     if cfg.io_dtype not in ("float32", "bfloat16") or ext_dt not in _STREAM_TYPES:
         raise ValueError(f"unsupported io_dtype/ext_dtype "
                          f"{cfg.io_dtype!r}/{ext_dt!r}")
@@ -75,6 +95,7 @@ def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
     scale = cfg.resolved_ext_scale()
     dt = _STREAM_TYPES[cfg.io_dtype]    # channel LLR stream type
     dte = _STREAM_TYPES[ext_dt]         # extrinsic stream type
+    dtc = carry_type(dte)               # ... as the loop carries it
     f32 = torch.float32
 
     # Extended permutations cover the pad region (gathered rows >= K are
@@ -113,37 +134,48 @@ def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
     if fold:
         perm_i, inv_i = perm_e.to(torch.int32), inv_e.to(torch.int32)
 
-    zT = torch.zeros((KTp, B), dtype=dte, device=dev)
+    zT = torch.zeros((KTp, B), dtype=dtc, device=dev)
     # NII state: per-window alpha start metrics per SISO, carried across
     # half-iterations (zeros = uniform cold start; slot 0 is never read).
     zC = torch.zeros((n_win, 8, B), dtype=f32, device=dev) if cfg.nii else None
 
-    def half_iters_fold(le2, ck1, ck2):
-        le1, ck1 = siso_cells(ls1, lp1s, le2, K, cfg.mode, scale,
-                              nii_ckpt=ck1, window=W, ext_qscale=qs,
-                              gather_idx=inv_i)
-        le2, ck2 = siso_cells(ls2, lp2s, le1, K, cfg.mode, scale,
-                              nii_ckpt=ck2, window=W, ext_qscale=qs,
-                              gather_idx=perm_i)
+    def carried(out, nii):
+        """A SISO call's result as the loop carries it: (le, window table
+        or None)."""
+        le, ck = out if nii else (out, None)
+        return le.view(dtc), ck
+
+    def siso(ls_, lp_, la, ck=None, idx=None):
+        """One SISO call on a carried stream."""
+        return carried(siso_cells(ls_, lp_, la.view(dte), K, cfg.mode, scale,
+                                  nii_ckpt=ck, window=W, ext_qscale=qs,
+                                  gather_idx=idx), ck is not None)
+
+    def siso1(le21, ck1):
+        """SISO1 on the carry: (le1, its window table or None)."""
+        with record_function("turbo.siso1"):
+            return siso(ls1, lp1s, le21, ck1, inv_i if fold else None)
+
+    def half_iters_fold(le2, ck1, ck2, first=None):
+        le1, ck1 = first or siso1(le2, ck1)
+        with record_function("turbo.siso2"):
+            le2, ck2 = siso(ls2, lp2s, le1, ck2, perm_i)
         return le2, le1, ck1, ck2
 
-    def half_iters(le21, ck1, ck2):
+    def half_iters(le21, ck1, ck2, first=None):
         """The two SISO half-iterations + extrinsic interleave gathers --
-        the only per-iteration work that is algorithmically required."""
+        the only per-iteration work that is algorithmically required.
+        first: SISO1's result when it was launched already, or None."""
         # SISO1 (natural order); le21 rows >= K are garbage, masked in-kernel.
         # SISO2 (interleaved order): a-priori is scale*le1 gathered by perm;
         # the kernel applies the scaling, so the gather is a pure gather.
-        if cfg.nii:
-            le1, ck1 = siso_cells(ls1, lp1s, le21, K, cfg.mode, scale,
-                                  nii_ckpt=ck1, window=W, ext_qscale=qs)
-            le2, ck2 = siso_cells(ls2, lp2s, g_perm(le1), K, cfg.mode, scale,
-                                  nii_ckpt=ck2, window=W, ext_qscale=qs)
-        else:
-            le1 = siso_cells(ls1, lp1s, le21, K, cfg.mode, scale,
-                             window=W, ext_qscale=qs)
-            le2 = siso_cells(ls2, lp2s, g_perm(le1), K, cfg.mode, scale,
-                             window=W, ext_qscale=qs)
-        return g_inv(le2), le1, ck1, ck2
+        le1, ck1 = first or siso1(le21, ck1)
+        with record_function("turbo.gather_perm"):
+            la2 = g_perm(le1)
+        with record_function("turbo.siso2"):
+            le2, ck2 = siso(ls2, lp2s, la2, ck2)
+        with record_function("turbo.gather_inv"):
+            return g_inv(le2), le1, ck1, ck2
 
     # int8 extrinsics are stored as integer codes; dequantize (x qs) when
     # assembling the full LLR.  (Inside the kernel the dequant is folded
@@ -151,7 +183,8 @@ def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
     deq = scale * (qs if qs else 1.0)
 
     def full_llr(le21, le1):
-        return ls1[:K].to(f32) + deq * (le1[:K].to(f32) + le21[:K].to(f32))
+        return ls1[:K].to(f32) + deq * (le1[:K].view(dte).to(f32)
+                                        + le21[:K].view(dte).to(f32))
 
     step = half_iters_fold if fold else half_iters
 
@@ -189,32 +222,56 @@ def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
         if cfg.early_term == "sign" else None
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     iters = torch.zeros((B,), dtype=torch.int32, device=dev)
-    it = 0
-    # Exits as soon as every codeword passes: one host read per iteration.
-    while it < cfg.n_iters and not bool(done.all()):
-        le21_new, le1_new, ck1, ck2 = step(le21, ck1, ck2)
-        # Under fold the carry holds raw le2; the convergence check needs
-        # natural order, so ONE gather per iteration remains (vs two).
-        le21_nat = g_inv(le21_new) if fold else le21_new
-        hard_new = (full_llr(le21_nat, le1_new) < 0)
+    # Exits as soon as every codeword passes: one host read per iteration,
+    # where the reference's lax.while_loop stays on the device.  A read that
+    # waited for the iteration to end would leave the card idle until the
+    # host had enqueued the next one.  So the flag is copied into pinned
+    # memory behind an event, the next iteration's SISO1 (which reads only
+    # the frozen carry) is launched, and only then does the host wait, for
+    # the event: the card runs SISO1 meanwhile.  If every codeword is done,
+    # that SISO1 is dropped: the outputs are those of the iteration before,
+    # and one SISO call of the card's time is all it cost.
+    flag = torch.zeros((), dtype=torch.bool, pin_memory=dev.type == "cuda")
+    ready = torch.cuda.Event() if dev.type == "cuda" else None
+    first = None
+    for it in range(cfg.n_iters):
+        le21_new, le1_new, ck1, ck2 = step(le21, ck1, ck2, first)
+        with record_function("turbo.early_exit"):
+            # Under fold the carry holds raw le2; the convergence check needs
+            # natural order, so ONE gather per iteration remains (vs two).
+            le21_nat = g_inv(le21_new) if fold else le21_new
+            hard_new = (full_llr(le21_nat, le1_new) < 0)
 
-        if cfg.early_term == "crc":
-            synd = hard_new.T.to(f32) @ G                    # (B, 24)
-            newly_done = (synd % 2.0 == 0.0).all(dim=1)
-        else:  # sign agreement
-            hard_new = hard_new.to(torch.int8)
-            newly_done = (hard_new == hard_prev).all(dim=0)
+            if cfg.early_term == "crc":
+                synd = hard_new.T.to(f32) @ G                    # (B, 24)
+                newly_done = (synd % 2.0 == 0.0).all(dim=1)
+            else:  # sign agreement
+                hard_new = hard_new.to(torch.int8)
+                newly_done = (hard_new == hard_prev).all(dim=0)
 
-        # Freeze converged codewords' extrinsics branchlessly; their SISO
-        # outputs keep being computed (the batch runs anyway) and are
-        # discarded here, so L/hard derived after the loop are pinned at
-        # the convergence iteration.
-        keep = done[None, :]
-        le21 = torch.where(keep, le21, le21_new)
-        le1 = torch.where(keep, le1, le1_new)
-        iters = iters + (~done).to(torch.int32)
-        if hard_prev is not None:
-            hard_prev = torch.where(keep, hard_prev, hard_new)
-        done = done | newly_done
-        it += 1
+            # Freeze converged codewords' extrinsics branchlessly; their SISO
+            # outputs keep being computed (the batch runs anyway) and are
+            # discarded here, so L/hard derived after the loop are pinned at
+            # the convergence iteration.
+            keep = done[None, :]
+            le21 = torch.where(keep, le21, le21_new)
+            le1 = torch.where(keep, le1, le1_new)
+            iters = iters + (~done).to(torch.int32)
+            if hard_prev is not None:
+                hard_prev = torch.where(keep, hard_prev, hard_new)
+            done = done | newly_done
+            flag.copy_(done.all(), non_blocking=True)
+            if ready is not None:
+                ready.record()
+        first = siso1(le21, ck1) if it + 1 < cfg.n_iters else None
+        with record_function("turbo.exit_read"):
+            if ready is not None:
+                ready.synchronize()
+            all_done = bool(flag)
+        if all_done:
+            if first is not None and ready is not None:
+                _, name = launch_count(cfg.nii, cfg.mode, fold, False, dt,
+                                       dte)
+                DROPPED[name] = DROPPED.get(name, 0) + 1
+            break
     return outputs(le21, le1, iters)

@@ -12,7 +12,9 @@ copy), and the extrinsic interleave between the half-iterations is a
 partitioned exchange: a gather of the rows each peer needs, one all_to_all of
 those buckets, one merged gather (`make_exchange`).  CRC early termination
 sums shard-local partial syndromes over seq (GF(2) linearity; exact in fp32:
-the sums are integers below K), and the early exit is in lockstep over data.
+the sums are integers below K), and the early exit is in lockstep over data
+(on the kernel route its read waits behind the next iteration's SISO1
+launches, as in decoder/turbo_cells.py).
 
 Two routes, as in the reference: `siso="cuda"` runs the chunk SISO through
 K4, the boundary contracts of the fused kernel (siso/cuda_kernel.py:
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..decoder.early_term import _crc_check_matrix_np
 from ..decoder.turbo import DecoderConfig
@@ -353,8 +356,8 @@ def _decode_seq_sharded_scan(mesh: Mesh, cfg: DecoderConfig):
 
 
 def _decode_seq_sharded_cells(mesh: Mesh, cfg: DecoderConfig):
-    from ..decoder.turbo_cells import _STREAM_TYPES
-    from ..siso.cuda_kernel import _e0, siso_cells
+    from ..decoder.turbo_cells import DROPPED, _STREAM_TYPES, carry_type
+    from ..siso.cuda_kernel import _e0, launch_count, siso_cells
     from . import dma
 
     n_seq = mesh.seq
@@ -371,15 +374,13 @@ def _decode_seq_sharded_cells(mesh: Mesh, cfg: DecoderConfig):
     xch_inv = make_exchange(inv_e, C, mesh)
     scale = cfg.resolved_ext_scale()
     ext_dt, qs = cfg.ext_io()
-    if ext_dt.startswith("float8"):
-        raise NotImplementedError(
-            f"ext_dtype={ext_dt!r}: float8 extrinsic streams are not ported")
     if cfg.io_dtype not in ("float32", "bfloat16") or ext_dt not in _STREAM_TYPES:
         raise ValueError(f"unsupported io_dtype/ext_dtype "
                          f"{cfg.io_dtype!r}/{ext_dt!r}")
     if cfg.early_term not in ("none", "crc", "sign"):
         raise ValueError(f"unknown early_term {cfg.early_term!r}")
     dt, dte = _STREAM_TYPES[cfg.io_dtype], _STREAM_TYPES[ext_dt]
+    dtc = carry_type(dte)     # float8 extrinsics travel as their bytes
     dev = mesh.device
     f32 = torch.float32
     js = [s for _, s in mesh.shards]
@@ -401,7 +402,8 @@ def _decode_seq_sharded_cells(mesh: Mesh, cfg: DecoderConfig):
         return full.to(dt).T.contiguous()
 
     def full_llr(ls_c, le1, le21):
-        return ls_c.to(f32) + deq * (le1.to(f32) + le21.to(f32))
+        return ls_c.to(f32) + deq * (le1.view(dte).to(f32)
+                                     + le21.view(dte).to(f32))
 
     def siso(streams, which, la, a_in, b_in, e0, outs=None):
         """One half-iteration on every shard's chunk through K4.  a_in is
@@ -416,16 +418,17 @@ def _decode_seq_sharded_cells(mesh: Mesh, cfg: DecoderConfig):
             if cfg.nii:
                 ain, edge_in = a_in[i]
                 le, aout, eout, bout = siso_cells(
-                    ls_c, lp_c, la[i], K, cfg.mode, scale,
+                    ls_c, lp_c, la[i].view(dte), K, cfg.mode, scale,
                     nii_boundaries=(ain, edge_in, bT), window=W,
                     row_offset=j * C, ext_qscale=qs, edges_out=edges_out)
-                res = (le, (aout, eout), bout)
+                res = (le.view(dtc), (aout, eout), bout)
             else:
                 a0 = e0 if j == 0 else a_in[i]
-                res = siso_cells(ls_c, lp_c, la[i], K, cfg.mode, scale,
-                                 boundaries=(a0, bT), window=W,
-                                 row_offset=j * C, ext_qscale=qs,
-                                 edges_out=edges_out)
+                le, aout, bout = siso_cells(
+                    ls_c, lp_c, la[i].view(dte), K, cfg.mode, scale,
+                    boundaries=(a0, bT), window=W, row_offset=j * C,
+                    ext_qscale=qs, edges_out=edges_out)
+                res = (le.view(dtc), aout, bout)
             for lst, x in zip(out, res):
                 lst.append(x)
         return out
@@ -500,7 +503,7 @@ def _decode_seq_sharded_cells(mesh: Mesh, cfg: DecoderConfig):
             Bg = b1 - b0
             e0 = _e0(Bg, dev)
             uni = torch.zeros((8, Bg), dtype=f32, device=dev)
-            zE = torch.zeros((C, Bg), dtype=dte, device=dev)
+            zE = torch.zeros((C, Bg), dtype=dtc, device=dev)
             if cfg.nii:
                 # per-window alpha starts (zeros: uniform cold start) and
                 # the chunk edge (e0 on shard 0)
@@ -519,19 +522,31 @@ def _decode_seq_sharded_cells(mesh: Mesh, cfg: DecoderConfig):
                                hard=[torch.zeros((C, Bg), dtype=torch.int8,
                                                  device=dev)] * n))
 
-        def iteration(g):
+        def siso1(g):
+            """SISO1 of group g on its carry: (le1, a_out, b_out) lists."""
+            send = g["ring"][1] if g["ring"] else (None, None)
+            with record_function("seq.siso1"):
+                return siso(g["streams"], 0, g["le21"], g["a1"], g["b1"],
+                            g["e0"], send[0])
+
+        def iteration(g, first=None):
             """Both SISOs and the exchanges of one iteration of group g;
-            returns (le1, le21_new)."""
+            returns (le1, le21_new).  first: SISO1's result when it was
+            launched already, or None."""
             st, ring = g["streams"], g["ring"]
             send = ring[1] if ring else (None, None)
-            le1, a1o, b1o = siso(st, 0, g["le21"], g["a1"], g["b1"], g["e0"],
-                                 send[0])
-            le2, a2o, b2o = siso(st, 2, xch_perm(le1), g["a2"], g["b2"],
-                                 g["e0"], send[1])
-            le21_new = xch_inv(le2)
+            le1, a1o, b1o = first or siso1(g)
+            with record_function("seq.xch_perm"):
+                la2 = xch_perm(le1)
+            with record_function("seq.siso2"):
+                le2, a2o, b2o = siso(st, 2, la2, g["a2"], g["b2"], g["e0"],
+                                     send[1])
+            with record_function("seq.xch_inv"):
+                le21_new = xch_inv(le2)
             # edges move after both SISOs of the iteration
-            g["a1"], g["b1"], g["a2"], g["b2"] = xch_edges(a1o, b1o, a2o,
-                                                          b2o, g["e0"], ring)
+            with record_function("seq.edges"):
+                g["a1"], g["b1"], g["a2"], g["b2"] = xch_edges(
+                    a1o, b1o, a2o, b2o, g["e0"], ring)
             return le1, le21_new
 
         if cfg.early_term == "none":
@@ -542,42 +557,69 @@ def _decode_seq_sharded_cells(mesh: Mesh, cfg: DecoderConfig):
         else:
             real_mask = [((j * C + torch.arange(C, device=dev)) < K)[:, None]
                          for j in js]
-            it, undone = 0, 1
-            while it < cfg.n_iters and undone > 0:
+            # The exit read waits behind a copy of the count into pinned
+            # memory and the next iteration's SISO1 of every group, as in
+            # decoder/turbo_cells.py, so the card is not idle while the host
+            # reads; a SISO1 dropped at the exit is counted in DROPPED.
+            undone_host = torch.zeros((), dtype=torch.int64,
+                                      pin_memory=dev.type == "cuda")
+            ready = torch.cuda.Event() if dev.type == "cuda" else None
+            first = [None] * len(groups)
+            for it in range(cfg.n_iters):
                 undone_local = [torch.zeros((), dtype=torch.int64, device=dev)
                                 for _ in range(n)]
-                for g in groups:
-                    le1, le21_new = iteration(g)
-                    # fused sign decision; L itself is formed once after the
-                    # loop from the frozen extrinsics
-                    hard_new = [full_llr(s[0], a, b) < 0 for s, a, b in
-                                zip(g["streams"], le1, le21_new)]
-                    if cfg.early_term == "crc":
-                        synd = mesh.seq_sum([h.T.to(f32) @ G_chunks[j]
-                                             for h, j in zip(hard_new, js)])
-                        newly = [(x % 2.0 == 0.0).all(dim=1) for x in synd]
-                    else:
-                        hard_new = [h.to(torch.int8) for h in hard_new]
-                        agree = mesh.seq_sum([
-                            ((h == hp) | ~m).all(dim=0).to(torch.int32)
-                            for h, hp, m in zip(hard_new, g["hard"],
-                                                real_mask)])
-                        newly = [a == n_seq for a in agree]
-                    for i in range(n):
-                        done = g["done"][i]
-                        keep = done[None, :]
-                        g["le21"][i] = torch.where(keep, g["le21"][i],
-                                                   le21_new[i])
-                        g["le1"][i] = torch.where(keep, g["le1"][i], le1[i])
-                        if cfg.early_term == "sign":
-                            g["hard"][i] = torch.where(keep, g["hard"][i],
-                                                       hard_new[i])
-                        g["iters"][i] = g["iters"][i] + (~done).to(torch.int32)
-                        g["done"][i] = done | newly[i]
-                        undone_local[i] += (~g["done"][i]).sum()
+                for g, f in zip(groups, first):
+                    le1, le21_new = iteration(g, f)
+                    with record_function("seq.early_exit"):
+                        # fused sign decision; L itself is formed once
+                        # after the loop from the frozen extrinsics
+                        hard_new = [full_llr(s[0], a, b) < 0 for s, a, b in
+                                    zip(g["streams"], le1, le21_new)]
+                        if cfg.early_term == "crc":
+                            synd = mesh.seq_sum([
+                                h.T.to(f32) @ G_chunks[j]
+                                for h, j in zip(hard_new, js)])
+                            newly = [(x % 2.0 == 0.0).all(dim=1) for x in synd]
+                        else:
+                            hard_new = [h.to(torch.int8) for h in hard_new]
+                            agree = mesh.seq_sum([
+                                ((h == hp) | ~m).all(dim=0).to(torch.int32)
+                                for h, hp, m in zip(hard_new, g["hard"],
+                                                    real_mask)])
+                            newly = [a == n_seq for a in agree]
+                        for i in range(n):
+                            done = g["done"][i]
+                            keep = done[None, :]
+                            g["le21"][i] = torch.where(keep, g["le21"][i],
+                                                       le21_new[i])
+                            g["le1"][i] = torch.where(keep, g["le1"][i],
+                                                      le1[i])
+                            if cfg.early_term == "sign":
+                                g["hard"][i] = torch.where(keep, g["hard"][i],
+                                                           hard_new[i])
+                            g["iters"][i] = (g["iters"][i]
+                                             + (~done).to(torch.int32))
+                            g["done"][i] = done | newly[i]
+                            undone_local[i] += (~g["done"][i]).sum()
                 # lockstep exit over data (see the scan route)
-                undone = int(mesh.data_sum(undone_local)[0])
-                it += 1
+                with record_function("seq.exit_read"):
+                    undone_host.copy_(mesh.data_sum(undone_local)[0],
+                                      non_blocking=True)
+                    if ready is not None:
+                        ready.record()
+                last = it + 1 == cfg.n_iters
+                first = [None if last else siso1(g) for g in groups]
+                with record_function("seq.exit_read"):
+                    if ready is not None:
+                        ready.synchronize()
+                    undone = int(undone_host)
+                if undone == 0:
+                    if not last and ready is not None:
+                        _, name = launch_count(cfg.nii, cfg.mode, False, True,
+                                               dt, dte)
+                        DROPPED[name] = (DROPPED.get(name, 0)
+                                         + n * len(groups))
+                    break
         if use_dma:
             # the exchanges read nothing back: a timeout in any of them
             # raises here, once per decode

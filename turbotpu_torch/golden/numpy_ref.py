@@ -1,9 +1,9 @@
 """Scalar numpy golden model: bit-exact turbo encoder and log-MAP decoder.
 
-Own copy of the parts of turbotpu/golden/numpy_ref.py the port needs
-(numpy only): the encoder that makes decode inputs, the LTE d-stream mux of
-the host-side transport-block pipeline, and the scalar BCJR that the torch
-SISOs are tested against.  Follows TS 36.212 section 5.1.3 exactly.
+The port's own copy of turbotpu/golden/numpy_ref.py (numpy only): the
+readable, unvectorised ground truth the torch decoders are tested against.
+The equivalent C++ model lives in cpp/golden.cc (cpp_ref.py binds it); both
+follow TS 36.212 section 5.1.3 / TS 25.212 section 4.2.3 exactly.
 
 Canonical codeword format used throughout the framework
 -------------------------------------------------------
@@ -12,7 +12,10 @@ A turbo codeword for block size K is the tuple of streams
     sys[K], par1[K], par2[K], tail1[6], tail2[6]
 
 where tail1 = (x_K, z_K, x_K+1, z_K+1, x_K+2, z_K+2) from terminating
-encoder 1 and tail2 likewise from encoder 2.
+encoder 1 and tail2 likewise from encoder 2.  The LTE d-stream mux
+(TS 36.212 section 5.1.3.2.2, d^(i) of length K+4) and the UMTS wire order
+(TS 25.212 section 4.2.3.1) are thin re-orderings of this canonical form,
+provided in lte_mux/lte_demux and umts_mux/umts_demux below.
 """
 
 from __future__ import annotations
@@ -77,6 +80,22 @@ def lte_demux(d0, d1, d2):
     tail1 = np.array([d0[K], d1[K], d2[K], d0[K + 1], d1[K + 1], d2[K + 1]])
     tail2 = np.array([d0[K + 2], d1[K + 2], d2[K + 2], d0[K + 3], d1[K + 3], d2[K + 3]])
     return d0[:K], d1[:K], d2[:K], tail1, tail2
+
+
+def umts_mux(sys, par1, par2, tail1, tail2):
+    """Canonical -> UMTS wire order (TS 25.212 section 4.2.3.1):
+    x1 z1 z'1 x2 z2 z'2 ... xK zK z'K then the 12 tail bits
+    x_K+1 z_K+1 x_K+2 z_K+2 x_K+3 z_K+3 x'_K+1 z'_K+1 ... z'_K+3."""
+    K = len(sys)
+    body = np.empty(3 * K, dtype=sys.dtype)
+    body[0::3], body[1::3], body[2::3] = sys, par1, par2
+    return np.concatenate([body, tail1, tail2])
+
+
+def umts_demux(wire):
+    K = (len(wire) - 12) // 3
+    body, tail = wire[:3 * K], wire[3 * K:]
+    return body[0::3], body[1::3], body[2::3], tail[:6], tail[6:]
 
 
 # ----------------------------------------------------------------------
@@ -154,3 +173,34 @@ def bcjr_siso(ls: np.ndarray, lp: np.ndarray, la: np.ndarray,
         L[k] = m0 - m1
     Le = L - la - ls[:K]
     return L, Le
+
+
+def turbo_decode(ls, lp1, lp2, tail1, tail2, perm, inv,
+                 n_iters: int = 8, mode: str = "logmap",
+                 ext_scale: float = 1.0,
+                 crc_poly: int | None = None):
+    """Golden full turbo decode, canonical-format LLR inputs.
+
+    ls, lp1, lp2: length-K channel LLRs; tail1/tail2: length-6 tail LLRs.
+    Returns (hard_bits[K], n_iters_run, L[K]).
+    """
+    from ..spec.crc import crc_check  # local import to avoid cycle
+
+    K = len(ls)
+    ls1 = np.concatenate([ls, tail1[0::2]])
+    lp1f = np.concatenate([lp1, tail1[1::2]])
+    ls2 = np.concatenate([np.asarray(ls)[perm], tail2[0::2]])
+    lp2f = np.concatenate([lp2, tail2[1::2]])
+
+    le21 = np.zeros(K)  # extrinsic from SISO2, natural order
+    for it in range(1, n_iters + 1):
+        _, le1 = bcjr_siso(ls1, lp1f, le21, mode)
+        le1 = le1 * ext_scale
+        _, le2 = bcjr_siso(ls2, lp2f, le1[perm], mode)
+        le2 = le2 * ext_scale
+        le21 = le2[inv]
+        L = ls + le1 + le21
+        hard = (L < 0).astype(np.int8)  # positive LLR favors 0
+        if crc_poly is not None and crc_check(hard, crc_poly):
+            return hard, it, L
+    return hard, n_iters, L

@@ -26,6 +26,11 @@ each in the three max* modes of `_mstar`/`_mstar_tree` there.  max-log keeps
 the names above; the linlog and log-MAP instantiations count their
 launches as `siso_nii_linlog`, `siso_exact_linlog`, `siso_nii_fold_linlog`,
 `siso_bnd_nii_linlog`, `siso_bnd_exact_linlog`, and the same with `_logmap`.
+Float8 (e4m3fn) extrinsic streams are libraries of their own, eighteen of
+them (three modes, two channel types, the plain, folded and boundary
+forms), and each counts its launches in `FP8_LAUNCHES` under one name
+(`fp8_name`: `siso_fp8_bf16`, `siso_fp8_fold_f32_linlog`,
+`siso_fp8_bnd_bf16_logmap`, ...), whichever contract of the library ran.
 Every one runs window-parallel, two launches per call, counted once: a beta
 walk beside alpha walks (exact: one over the whole trellis; NII: one per
 window, from its inherited start) that leave checkpoints at segment edges,
@@ -41,7 +46,8 @@ ignored (masked in the kernel) but must be finite.  Window checkpoints are
 `(n_win, 8, B)` fp32; slot 0 is never read and never written.
 
 On a CUDA tensor a wrapper launches its kernel or raises; it takes the plain
-version only for a tensor on the CPU.  `LAUNCHES` counts kernel launches.
+version only for a tensor on the CPU.  `LAUNCHES` counts kernel launches,
+`FP8_LAUNCHES` those of the fp8 libraries.
 
 The plain versions (`siso_nii_plain`, `siso_exact_plain`; the folded read is
 `siso_nii_plain(..., gather_idx=idx)`, an `index_select` in front of the
@@ -98,7 +104,40 @@ LAUNCHES.update({kernel_name(nii, mode, bnd=True): 0
                  for mode in (MAXLOG, LINLOG, LOGMAP) for nii in BND_CONTRACTS})
 
 _CHAN_TYPES = {torch.float32: 0, torch.bfloat16: 1}
-_EXT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_EXT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+              torch.float8_e4m3fn: 3}
+FP8 = torch.float8_e4m3fn
+FP8_MAX = 448.0      # e4m3fn's largest finite value; it has no inf
+# (fold, bnd) of the three libraries of each (mode, channel type)
+FORMS = ((False, False), (True, False), (False, True))
+
+
+def fp8_name(chan: torch.dtype, mode: str, fold: bool = False,
+             bnd: bool = False) -> str:
+    """The name a float8-extrinsic library counts its launches under: one
+    per (channel type, mode, form), for both contracts of the plain and the
+    boundary library."""
+    if fold and bnd:
+        raise ValueError("the folded read has no boundary form")
+    form = "_fold" if fold else "_bnd" if bnd else ""
+    ch = {torch.bfloat16: "bf16", torch.float32: "f32"}[chan]
+    base = f"siso_fp8{form}_{ch}"
+    return base if mode == MAXLOG else f"{base}_{mode}"
+
+
+FP8_NAMES = [fp8_name(chan, mode, fold, bnd) for fold, bnd in FORMS
+             for chan in (torch.bfloat16, torch.float32)
+             for mode in (MAXLOG, LINLOG, LOGMAP)]
+# launch counts of the float8-extrinsic libraries, one per library
+FP8_LAUNCHES = {name: 0 for name in FP8_NAMES}
+
+
+def launch_count(nii: bool, mode: str, fold: bool, bnd: bool,
+                 chan: torch.dtype, ext: torch.dtype) -> tuple[dict, str]:
+    """The counter one call of the kernels adds to: (its dict, its key)."""
+    if ext == FP8:
+        return FP8_LAUNCHES, fp8_name(chan, mode, fold, bnd)
+    return LAUNCHES, kernel_name(nii, mode, fold, bnd)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -128,10 +167,13 @@ def _quantize_le(le: torch.Tensor, dt: torch.dtype, qscale: float) -> torch.Tens
     """Cast an fp32 extrinsic row to the extrinsic stream type.  int8 is
     uniform quantisation at step `qscale`, rounded half to even and
     saturated at +-127; the matching dequantisation rides the kernel's
-    a-priori scale multiply."""
+    a-priori scale multiply.  float8_e4m3fn saturates at +-448 (the format
+    has no inf) and rounds to nearest even."""
     if dt == torch.int8:
         return torch.clamp(torch.round(le * (1.0 / qscale)),
                            -127.0, 127.0).to(torch.int8)
+    if dt == FP8:
+        return le.clamp(-FP8_MAX, FP8_MAX).to(FP8)
     return le.to(dt)
 
 
@@ -431,13 +473,12 @@ def _operands(ls, lp, la, K_real, mode, scale=1.0, nii_ckpt=None, window=0,
         raise ValueError(f"unknown max* mode {mode!r}")
     if ls.dim() != 2 or lp.shape != ls.shape or la.shape != ls.shape:
         raise ValueError("ls, lp, la must share one (KTp, B) shape")
-    if str(la.dtype).startswith("torch.float8"):
-        raise NotImplementedError("float8 extrinsic streams are not ported")
     if ls.dtype != lp.dtype or ls.dtype not in _CHAN_TYPES:
         raise TypeError(f"ls/lp must both be float32 or bfloat16, got "
                         f"{ls.dtype}, {lp.dtype}")
     if la.dtype not in _EXT_TYPES:
-        raise TypeError(f"la must be float32, bfloat16 or int8, got {la.dtype}")
+        raise TypeError(f"la must be float32, bfloat16, int8 or "
+                        f"float8_e4m3fn, got {la.dtype}")
     if (la.dtype == torch.int8) != (ext_qscale > 0.0):
         raise ValueError("ext_qscale is the int8 quantisation step: it must "
                          "be > 0 for int8 extrinsics and 0 otherwise")
@@ -514,9 +555,9 @@ def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
     ls/lp/la: contiguous (KTp, B) with KTp a multiple of the window; pad
     steps beyond the real trellis carry ls = +BIG, lp = 0.  ls and lp share
     a type (float32 or bfloat16); la, and the le that comes back, may be
-    float32, bfloat16 or int8 codes of step `ext_qscale`.  The kernel forms
-    A = -(scale*la*[t < K_real] + ls), P = -lp itself; le rows at
-    t >= K_real are finite garbage.
+    float32, bfloat16, float8_e4m3fn or int8 codes of step `ext_qscale`.
+    The kernel forms A = -(scale*la*[t < K_real] + ls), P = -lp itself; le
+    rows at t >= K_real are finite garbage.
 
     nii_ckpt: optional (n_win, 8, B) fp32 window-start alphas from the
     previous half-iteration (cold start: zeros).  With it the call returns
@@ -567,8 +608,10 @@ def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
             b_edge = edges_out[1].copy_(b_edge)
     else:
         run, (le, ck, a_edge, b_edge) = _launcher(*ops)
-        LAUNCHES[kernel_name(ain is not None, mode, gather_idx is not None,
-                             edges is not None)] += 1
+        counts, name = launch_count(ain is not None, mode,
+                                    gather_idx is not None, edges is not None,
+                                    ls.dtype, la.dtype)
+        counts[name] += 1
         run(PASS1 | PASS2)
     if boundaries is not None:
         return le, a_edge, b_edge
