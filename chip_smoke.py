@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--ptxas] [--phases kernels,decode,...]
 
 Phases: kernels, decode, bench, mixed, gather, encoder, fold, calibrate, tb,
-seq, fp8, dist, compact, ber, profile, variants, harness.
+seq, fp8, dist, compact, ber, profile, variants, harness, experiments.
 
 Needs one NVIDIA card, nvcc and no network.  It builds the port's CUDA
 kernels from turbotpu_torch/csrc (siso.cu in all its 72 variants, row_gather.cu,
@@ -65,7 +65,11 @@ entry points:
   against `siso="scan"`, one K=6144 decode each (phase `variants`);
 * `cli scaling --devices 1`, `cli supervise -- ber --config c1` with a frame
   cap, and `harness.debug.checked` around the flagship decode (phase
-  `harness`).
+  `harness`);
+* every program of the evidence layer (turbotpu_torch/experiments/: the
+  acceptance run and the twelve studies, the decode mode of cost_breakdown)
+  through its `main` at a capped size, its record checked, and `fer_run` on
+  the card against the CPU (phase `experiments`).
 
 Each phase prints one JSON line; any failure is an exception and a non-zero
 exit.  The last line is {"ok": true, "device": {...}}.  --ptxas also prints
@@ -98,7 +102,7 @@ _PALLAS = "turbotpu/siso/pallas_kernel.py"
 KERNEL_SOURCE = "turbotpu_torch/csrc/siso.cu"
 ALL_PHASES = ("kernels", "decode", "bench", "mixed", "gather", "encoder",
               "fold", "calibrate", "tb", "seq", "fp8", "dist", "compact",
-              "ber", "profile", "variants", "harness")
+              "ber", "profile", "variants", "harness", "experiments")
 
 # kernel vs plain version on the card: difference 0 in every mode.  The
 # kernels and the plain versions do the same fp32 operations in the same
@@ -116,7 +120,6 @@ REFERENCE_FER = {
     ("c2_lte_k6144", 0.6): (34, 512),
     ("c1_lte_k40", 2.0): (30, 544),
 }
-BAND_SIGMAS = 4.0
 
 
 def emit(phase: str, **rec) -> None:
@@ -882,14 +885,6 @@ def check_calibrate(dev, card, results):
     emit("calibrate", **rec)
 
 
-def fer_band(fe, n, fe_ref, n_ref):
-    """|FER - FER_ref| against BAND_SIGMAS standard deviations of the
-    difference of two binomial rates with the pooled error probability."""
-    p = (fe + fe_ref) / (n + n_ref)
-    sd = math.sqrt(p * (1 - p) * (1 / n + 1 / n_ref))
-    return abs(fe / n - fe_ref / n_ref), BAND_SIGMAS * sd
-
-
 def stage_times(step, gen, esn0):
     """ms per batch of a sweep's stages, CUDA-event timed, for a step of
     harness.ber or harness.tb: encode (payload, CRC, segmentation, encoder,
@@ -916,6 +911,7 @@ def run_tb(dev, card, results):
     """Phase `tb`: the transport-block sweep's entry point on C6 at full
     width (A=12000, two code blocks 6016/6080, G=24000, 32 blocks per batch),
     a cap each, and the host-side pipeline on one block."""
+    from turbotpu_torch.experiments.run_acceptance import BAND_SIGMAS, fer_band
     from turbotpu_torch import transport
     from turbotpu_torch.configs.acceptance import C6_TB
     from turbotpu_torch.harness import tb
@@ -1156,14 +1152,13 @@ def check_seq(dev, card, results):
     ring shift; seq=2 against the monolithic decode of the same frames; a
     small decode against the CPU; the corrected modes through the same
     entry point; where a C5 iteration's time goes."""
+    from turbotpu_torch.experiments.run_acceptance import fer_band
     from turbotpu_torch import turbo_decode
     from turbotpu_torch.dist.dma import boundary_exchange_dma
     from turbotpu_torch.dist.mesh import make_mesh
     from turbotpu_torch.dist.seq_parallel import (_chunked_crc_matrix,
-                                                  _extended_tables,
-                                                  chunk_sizing,
-                                                  decode_seq_sharded,
-                                                  make_exchange)
+                                                  decode_seq_sharded)
+    from turbotpu_torch.experiments import seq_glue
     from turbotpu_torch.harness import c5
     from turbotpu_torch.harness.bench import flagship_config, make_decode_inputs
     from turbotpu_torch.siso import cuda_kernel as ck
@@ -1298,10 +1293,9 @@ def check_seq(dev, card, results):
 
     # where a C5 iteration's time goes (seq=2, exact, crc): each part timed
     # alone at the decode's shapes
-    C, W, n_win, KTp = chunk_sizing(K + 3, 2)
-    cfg = c5.c5_config()
-    perm_e, inv_e = _extended_tables(cfg, KTp)
-    xch = make_exchange(perm_e, C, mesh)
+    # the production pieces seq_glue times per shard
+    pieces = seq_glue.shard_setup(K, 2, dev)
+    C, cfg, xch = pieces.C, pieces.cfg, pieces.xch
     le = [torch.randn((C, B), device=dev).to(torch.bfloat16) for _ in range(2)]
     ls_c = [torch.randn((C, B), device=dev).to(torch.bfloat16)
             for _ in range(2)]
@@ -1552,6 +1546,7 @@ def run_compact(dev, card, results):
 def run_ber(dev, card, results):
     """Phase `ber`: the sweep's entry point on the acceptance configurations
     at full width, a frame cap each."""
+    from turbotpu_torch.experiments.run_acceptance import BAND_SIGMAS, fer_band
     from turbotpu_torch.configs import acceptance as acc
     from turbotpu_torch.harness import ber
     from turbotpu_torch.siso.cuda_kernel import kernel_name
@@ -1688,6 +1683,7 @@ def check_fp8(dev, card, results):
     every library through the entry points (turbo_decode NII, exact and
     fold_gather; decode_seq_sharded seq=2 exact and NII) and one `cli c5
     --ext-dtype float8_e4m3fn` run held to the bf16 run's frame errors."""
+    from turbotpu_torch.experiments.run_acceptance import fer_band
     import contextlib
     import io
 
@@ -2228,6 +2224,101 @@ def run_harness(dev, card):
     emit("harness", **rec)
 
 
+# (program, argv) of phase `experiments`, in this order: flagship_tuning and
+# seq_glue before the programs that read their records, comm_model before
+# latency.  "{d}" is the phase's record directory.  One batch and one Eb/N0
+# each, K <= 1024 but where the program is about K=6144.
+EXPERIMENTS = (
+    ("run_acceptance", ["--configs", "c4", "--max-frames", "128"]),
+    ("flagship_tuning", ["--batches", "1024", "--ab-rounds", "1", "--runs",
+                         "2", "--timed", "2"]),
+    ("nii_window_sweep", ["--windows", "256", "--ebn0", "0.8",
+                          "--n-batches", "1", "--batch", "256", "--timed",
+                          "2"]),
+    ("ext_dtype_ber", ["--ebn0", "0.8", "--n-batches", "1", "--batch",
+                       "256"]),
+    ("map_variant_ber", ["--ebn0", "0.6", "--n-batches", "1", "--batch",
+                         "256", "--tuning", "{d}/flagship_tuning.json"]),
+    ("map_variant_umts", ["--ebn0", "1.0", "--frames", "128"]),
+    ("k_sweep", ["--ks", "1024", "--mixed-batches", "128", "--timed", "2"]),
+    ("siso_shapes", ["--ks", "104", "--bs", "8", "--target-ms", "5"]),
+    ("cost_breakdown", ["decode", "--k", "1024", "--b", "256"]),
+    ("seq_gap", ["--reps", "4", "--timed", "2"]),
+    ("seq_glue", ["--seqs", "1", "2", "--batches", "1024", "--k", "1024",
+                  "--reps", "4"]),
+    ("seq_nii_ber", ["--k", "1024", "--n-seq", "2", "--b", "256", "--ebn0",
+                     "0.8", "--max-frames", "256"]),
+    ("comm_model", ["--k", "1024", "--seqs", "2", "--tuning",
+                    "{d}/flagship_tuning.json", "--glue",
+                    "{d}/seq_glue.json"]),
+    ("latency", ["--batches", "1", "64", "--timed", "2", "--oneshot", "4",
+                 "--comm-model", "{d}/comm_model.json"]),
+)
+
+
+def finite_numbers(x, where="") -> int:
+    """Count the numbers in a record, raising at one that is not finite
+    (None, a field a program leaves empty by its stated rule, passes)."""
+    if isinstance(x, dict):
+        return sum(finite_numbers(v, f"{where}.{k}") for k, v in x.items())
+    if isinstance(x, list):
+        return sum(finite_numbers(v, f"{where}[{i}]") for i, v in enumerate(x))
+    if isinstance(x, bool) or not isinstance(x, (int, float)):
+        return 0
+    if not math.isfinite(x):
+        raise AssertionError(f"record field {where} = {x}")
+    return 1
+
+
+def run_experiments(dev, card):
+    """Phase `experiments`: every program of the evidence layer
+    (turbotpu_torch/experiments/) through its `main`, capped (EXPERIMENTS),
+    its records written to a temporary directory and checked: they name
+    the card, carry the program's argv and only finite numbers; then
+    `nii_window_sweep.fer_run` on the card against the same frames on the
+    CPU (plain versions): equal counts."""
+    import importlib
+    import tempfile
+    from turbotpu_torch.decoder.turbo import DecoderConfig
+    from turbotpu_torch.experiments import nii_window_sweep
+
+    rec = {"card": card, "programs": {}}
+    with tempfile.TemporaryDirectory() as d:
+        for name, argv in EXPERIMENTS:
+            argv = [a.format(d=d) for a in argv]
+            out = ["--out", d if name == "run_acceptance"
+                   else f"{d}/{name}.json"]
+            mod = importlib.import_module(f"turbotpu_torch.experiments.{name}")
+            t0 = time.perf_counter()
+            mod.main(argv + out)
+            path = f"{d}/{name}.json"
+            with open(path) as f:
+                r = json.load(f)
+            if r["card"] != card or r["argv"] != argv + out:
+                raise AssertionError(f"{name}: record names {r['card']!r}, "
+                                     f"argv {r['argv']}")
+            rec["programs"][name] = {"seconds": time.perf_counter() - t0,
+                                     "numbers": finite_numbers(r, name)}
+        with open(f"{d}/h100_accept.jsonl") as f:
+            points = [json.loads(ln) for ln in f]
+        rows = rec["programs"]["run_acceptance"]
+        if not points or any(p["card"] != card for p in points):
+            raise AssertionError(f"run_acceptance: {len(points)} points")
+        rows["numbers"] += finite_numbers(points)
+
+    # fer_run on the card against the CPU: the same frames, equal counts
+    cfg = DecoderConfig(K=168, n_iters=6, mode="maxlog", ext_scale=0.75,
+                        siso="cuda", io_dtype="bfloat16", nii=True, window=32,
+                        ext_dtype="int8")
+    got = nii_window_sweep.fer_run(cfg, 168, 64, 0.5, 1, 777, dev)
+    want = nii_window_sweep.fer_run(cfg, 168, 64, 0.5, 1, 777, "cpu")
+    if got != want or got[0] == 0:
+        raise AssertionError(f"fer_run on the card {got}, on the CPU {want}")
+    rec["fer_run_card_vs_cpu"] = {"bit_errs": got[0], "frame_errs": got[1],
+                                  "equal": True}
+    emit("experiments", **rec)
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2327,7 +2418,8 @@ def main(argv) -> int:
            "ber": lambda: run_ber(dev, card, results),
            "profile": lambda: run_profile(dev, card),
            "variants": lambda: check_variants(dev, card),
-           "harness": lambda: run_harness(dev, card)}
+           "harness": lambda: run_harness(dev, card),
+           "experiments": lambda: run_experiments(dev, card)}
     for phase in ALL_PHASES:
         if phase in phases:
             t0 = time.perf_counter()

@@ -113,7 +113,15 @@ def test_crc_ok_batch():
                                     "turbotpu_torch.dist.seq_parallel",
                                     "turbotpu_torch.dist.dma",
                                     "turbotpu_torch.dist.multihost",
-                                    "turbotpu_torch.harness.c5"])
+                                    "turbotpu_torch.harness.c5",
+                                    *(f"turbotpu_torch.experiments.{m}" for m in (
+                                        "common", "run_acceptance",
+                                        "nii_window_sweep", "ext_dtype_ber",
+                                        "map_variant_ber", "map_variant_umts",
+                                        "flagship_tuning", "latency", "k_sweep",
+                                        "siso_shapes", "cost_breakdown",
+                                        "seq_gap", "seq_glue", "seq_nii_ber",
+                                        "comm_model", "gather_inkernel"))])
 def test_import_leaves_jax_out(module):
     """(e) Importing the port in a fresh interpreter loads neither jax nor
     the JAX package."""

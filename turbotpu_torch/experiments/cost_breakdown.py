@@ -13,7 +13,17 @@ kernel's measured time per trellis step against its counted operations at
 those rates.  Times come from CUDA events; the reference's machinery for
 subtracting a host round trip has no counterpart here and is not ported.
 
-    python -m turbotpu_torch.experiments.cost_breakdown [--out FILE]
+    python -m turbotpu_torch.experiments.cost_breakdown [roofline] [--out FILE]
+
+The `decode` mode is the counterpart of the reference's `mode_decode`:
+where a decode's time goes, three things timed on the same streams (CUDA
+events): the two SISO kernel calls of each iteration alone, the same with
+the two interleave gathers (`index_select` along time), and the whole
+`turbo_decode`; it writes records/cost_breakdown.json unless --out says
+otherwise.
+
+    python -m turbotpu_torch.experiments.cost_breakdown decode [--k 6144]
+        [--b 1024] [--iters 6] [--out FILE]
 
 On a CUDA tensor `issue_rate` launches its kernel or raises; it takes the
 plain version only for a tensor on the CPU.  `LAUNCHES` counts launches.
@@ -30,6 +40,7 @@ import torch
 
 from .. import _build
 from .._device import resolve_device
+from .common import need_card
 
 LAUNCHES = {"issue_rate": 0}
 TARGET: _build.Target = ("issue_rate", ())
@@ -211,12 +222,88 @@ def roofline(device="cuda", B: int = 1024, cal: dict | None = None) -> dict:
     }
 
 
+def mode_decode(K: int = 6144, B: int = 1024, iters: int = 6,
+                io_dtype: str = "bfloat16", nii: bool = True, window: int = 256,
+                device="cuda", n_timed: int = 8) -> dict:
+    """ms per decode of (a) the SISO kernel calls alone (two per iteration,
+    the second reading the first's le), (b) the same with the two interleave
+    gathers between them, (c) the whole lean `turbo_decode` (max-log, scale
+    0.75, extrinsics of the channel streams' type); the kernels take the NII
+    contract when `nii`, as the decode does.  Streams: numpy seed 0, x 4."""
+    import numpy as np
+    from ..decoder.turbo import DecoderConfig, turbo_decode
+    from ..harness.bench import event_ms, make_decode_inputs
+    from ..siso.cuda_kernel import _round_up, siso_cells, window_len
+    from ..spec.qpp import qpp_inv, qpp_perm
+    dev = resolve_device(device)
+    need_card(dev, "mode_decode")
+    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}[io_dtype]
+    KT = K + 3
+    W = window or window_len(KT)
+    KTp = _round_up(KT, W)
+    rng = np.random.default_rng(0)
+    mk = lambda: torch.from_numpy((rng.normal(size=(KTp, B)) * 4).astype(
+        np.float32)).to(dev, dt)
+    ls1, lp1, ls2, lp2 = (mk() for _ in range(4))
+    ext = np.arange(K, KTp)
+    perm_e = torch.from_numpy(np.concatenate([qpp_perm(K), ext])).to(dev)
+    inv_e = torch.from_numpy(np.concatenate([qpp_inv(K), ext])).to(dev)
+    ck = {s: torch.zeros((KTp // W, 8, B), device=dev) for s in (1, 2)}
+
+    def siso(ls, lp, la, s):
+        if not nii:
+            return siso_cells(ls, lp, la, K, "maxlog", 0.75, window=W)
+        le, ck[s] = siso_cells(ls, lp, la, K, "maxlog", 0.75,
+                               nii_ckpt=ck[s], window=W)
+        return le
+
+    def kernels(gathers: bool):
+        def run():
+            la = torch.zeros_like(ls1)
+            for _ in range(iters):
+                le1 = siso(ls1, lp1, la, 1)
+                le2 = siso(ls2, lp2, le1.index_select(0, perm_e)
+                           if gathers else le1, 2)
+                la = le2.index_select(0, inv_e) if gathers else le2
+        return run
+
+    cfg = DecoderConfig(K=K, n_iters=iters, mode="maxlog", ext_scale=0.75,
+                        siso="cuda", io_dtype=io_dtype, nii=nii, window=window)
+    full_in = tuple(x.to(dev) for x in make_decode_inputs(K, B))
+    t = {"kernels_ms": event_ms(kernels(False), n_timed),
+         "kernels_gathers_ms": event_ms(kernels(True), n_timed),
+         "full_decode_ms": event_ms(
+             lambda: turbo_decode(*full_in, cfg, device=dev), n_timed)}
+    t.update({
+        "K": K, "B": B, "iters": iters, "io_dtype": io_dtype, "nii": nii,
+        "window": W, "timed_reps": n_timed,
+        "gathers_ms": t["kernels_gathers_ms"] - t["kernels_ms"],
+        "loop_overhead_pct": 100 * (t["full_decode_ms"]
+                                    - t["kernels_gathers_ms"])
+        / t["full_decode_ms"],
+        **{k.replace("_ms", "_gbit_per_s"): B * K / t[k] / 1e6
+           for k in ("kernels_ms", "kernels_gathers_ms", "full_decode_ms")}})
+    return t
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("mode", nargs="?", default="roofline",
+                    choices=["roofline", "decode"])
+    ap.add_argument("--k", type=int, default=6144, help="decode mode")
     ap.add_argument("--b", type=int, default=1024)
+    ap.add_argument("--iters", type=int, default=6, help="decode mode")
     ap.add_argument("--out", default=None, help="write the record here")
     args = ap.parse_args(argv)
     from ..harness.bench import card_info
+    if args.mode == "decode":
+        from .common import out_path, run_meta, write_record
+        dev = resolve_device("cuda")
+        rec = {**run_meta(argv, dev),
+               "decode": mode_decode(args.k, args.b, args.iters, device=dev)}
+        print(json.dumps(rec["decode"]), flush=True)
+        write_record(rec, out_path(args.out, "cost_breakdown"))
+        return rec
     cal = calibrate()
     rec = {"card": card_info(), "calibration": cal,
            "roofline": roofline(B=args.b, cal=cal)}
