@@ -7,17 +7,21 @@ Phases: kernels, decode, bench, mixed, gather, encoder, fold, calibrate, tb,
 seq, fp8, dist, compact, ber, profile, variants, harness, experiments.
 
 Needs one NVIDIA card, nvcc and no network.  It builds the port's CUDA
-kernels from turbotpu_torch/csrc (siso.cu in all its 72 variants, row_gather.cu,
-issue_rate.cu, ring_xch.cu), holds each against its plain PyTorch version on
-the card (every SISO kernel, exact, NII, folded and boundary, at difference
-0 in every mode, also at batches that are not a multiple of their blocks,
-in one window or one segment and with masked rows; the two passes of the
-exact, NII, folded and boundary kernels timed apart), and drives the port's
-entry points:
+kernels from turbotpu_torch/csrc (siso.cu in all its 72 variants,
+row_gather.cu, issue_rate.cu, ring_xch.cu, layout.cu), holds each against its
+plain PyTorch version on the card (every SISO kernel, exact, NII, folded and
+boundary, at difference 0 in every mode, also at batches that are not a
+multiple of their blocks, in one window or one segment and with masked rows;
+the two passes of the exact, NII, folded and boundary kernels timed apart),
+and drives the port's entry points:
 
 * `turbotpu_torch.turbo_decode` on the flagship configuration (LTE K=6144,
   1024 codewords, max-log, 6 iterations, NII window 256, bf16 channel
   streams, int8 extrinsics), checked and timed (phases `decode`, `bench`),
+  with one launch of each layout kernel of layout.cu, which are held byte
+  for byte against their plain versions and timed against them at the
+  chained benchmark cells' shapes (B=16384, K=6144 with the shared table;
+  B=6656, K=5824 with per-codeword tables; phase `decode`),
   and the same decode with `fold_gather=True`, which must give the same bits,
   iteration counts and L through the folded kernel alone (phase `fold`, with
   the row-gather experiment, timed back to back and as a CUDA graph against
@@ -572,9 +576,119 @@ def small_decode_vs_cpu(cfg):
     return diff
 
 
+def layout_bytes(B, K, KTp, chan_bytes, ext_bytes, idx_bytes):
+    """Least bytes each layout pass must move: pack_kernel (three fp32 (B, K)
+    inputs and the tails read; ls1, lp1s, lp2s and ls2's tail and pad rows
+    written), ls2's row gather (ls1's K rows read and written, its index
+    read) and unpack_kernel (rows [0, K) of ls1, le1, le21 read; L fp32 and
+    hard int8 written)."""
+    pack = 3 * B * K * 4 + 2 * B * 6 * 4 + (4 * KTp - K) * B * chan_bytes
+    gather = 2 * K * B * chan_bytes + idx_bytes
+    unpack = K * B * (chan_bytes + 2 * ext_bytes) + B * K * (4 + 1)
+    return pack, gather, unpack
+
+
+# the chained cells' layout crossings: cell, B, K, KTp, interleaver table
+LAYOUT_SHAPES = (("cb6144-b16384-lean", 16384, 6144, 6400, "shared"),
+                 ("tb75376-n512-crc", 6656, 5824, 5888, "per_codeword"))
+
+
+def check_layout(dev, results, shapes=LAYOUT_SHAPES):
+    """The two layout kernels of csrc/layout.cu at the chained cells'
+    shapes, as the main path calls them (bf16 streams, int8 extrinsics):
+    `cb6144-b16384-lean` (B=16384, K=6144, KTp=6400, the shared QPP table)
+    and `tb75376-n512-crc` (B=6656, K=5824, KTp=5888, time-major
+    per-codeword tables).  Each wrapper's outputs against its plain version
+    on the same card tensors, byte for byte; each timed against its plain
+    chain with CUDA events (pack: the kernel, then ls2's row gather); bound
+    by the bytes it must move at PEAK_BYTES_PER_S.  Returns the record of
+    each shape; `results` takes the first shape's."""
+    from turbotpu_torch.decoder import layout
+    from turbotpu_torch.spec.qpp import qpp_perm
+
+    def same_bytes(a, b):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return False
+        as_int = {1: torch.int8, 2: torch.int16, 4: torch.int32}[
+            a.element_size()]
+        return torch.equal(a.view(as_int), b.view(as_int))
+
+    dt, ext, deq = torch.bfloat16, torch.int8, 0.75 * 0.25
+    out = []
+    for cell, B, K, KTp, table in shapes:
+        g = torch.Generator(device=dev).manual_seed(B + K)
+        ls, lp1, lp2 = (torch.randn((B, K), generator=g, device=dev) * 8
+                        for _ in range(3))
+        t1, t2 = (torch.randn((B, 6), generator=g, device=dev) * 8
+                  for _ in range(2))
+        perm = torch.from_numpy(qpp_perm(K).astype(np.int64)).to(dev)
+        if table == "per_codeword":     # every block of cell 3 has one K
+            perm = perm[:, None].expand(K, B).contiguous()
+        got = layout.pack_streams(ls, lp1, lp2, t1, t2, KTp, dt, perm)
+        want = layout.pack_streams_plain(ls, lp1, lp2, t1, t2, KTp, dt, perm)
+        if not all(same_bytes(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"pack_streams differs from its plain "
+                                 f"version at {cell}'s shape")
+        del want
+        ls1, _, ls2, _ = got
+        le1, le21 = (torch.randint(-127, 128, (KTp, B), generator=g,
+                                   device=dev, dtype=ext) for _ in range(2))
+        hard, L = layout.assemble_outputs(ls1, le1, le21, K, deq, ext)
+        want_hard, want_L = layout.assemble_outputs_plain(ls1, le1, le21, K,
+                                                          deq, ext)
+        if not (same_bytes(L, want_L) and same_bytes(hard, want_hard)):
+            raise AssertionError(f"assemble_outputs differs from its plain "
+                                 f"version at {cell}'s shape")
+        del hard, L, want_hard, want_L
+
+        if perm.dim() == 1:
+            row_gather = lambda: torch.index_select(ls1, 0, perm,
+                                                    out=ls2[:K])
+        else:
+            row_gather = lambda: torch.gather(ls1, 0, perm, out=ls2[:K])
+        pack_b, gather_b, unpack_b = layout_bytes(
+            B, K, KTp, dt.itemsize, ext.itemsize, perm.numel() * 8)
+        rec = {"cell": cell, "B": B, "K": K, "KTp": KTp, "table": table,
+               "chan": "bfloat16", "ext": "int8", "equal": True,
+               "pack_ms": time_launches(lambda: layout.pack_streams(
+                   ls, lp1, lp2, t1, t2, KTp, dt, perm), 20),
+               "pack_kernel_ms": time_launches(lambda: layout._pack_launch(
+                   ls, lp1, lp2, t1, t2, KTp, dt), 20),
+               "ls2_gather_ms": time_launches(row_gather, 20),
+               "pack_plain_ms": time_launches(
+                   lambda: layout.pack_streams_plain(
+                       ls, lp1, lp2, t1, t2, KTp, dt, perm), 20),
+               "pack_bound_ms": (pack_b + gather_b) / PEAK_BYTES_PER_S * 1e3,
+               "unpack_ms": time_launches(lambda: layout.assemble_outputs(
+                   ls1, le1, le21, K, deq, ext), 20),
+               "unpack_plain_ms": time_launches(
+                   lambda: layout.assemble_outputs_plain(
+                       ls1, le1, le21, K, deq, ext), 20),
+               "unpack_bound_ms": unpack_b / PEAK_BYTES_PER_S * 1e3}
+        out.append(rec)
+        del got, ls1, ls2, le1, le21, ls, lp1, lp2, perm
+        torch.cuda.empty_cache()
+
+    first = out[0]
+    shape = {k: first[k] for k in ("cell", "B", "K", "KTp", "table", "chan",
+                                   "ext")}
+    results["pack_kernel"].update(
+        max_abs_err=0.0, ms=first["pack_ms"], plain_ms=first["pack_plain_ms"],
+        bound_ms=first["pack_bound_ms"], bound_by="bytes", shape=shape,
+        pass_ms={"pack_kernel": first["pack_kernel_ms"],
+                 "ls2_gather": first["ls2_gather_ms"]})
+    results["unpack_kernel"].update(
+        max_abs_err=0.0, ms=first["unpack_ms"],
+        plain_ms=first["unpack_plain_ms"], bound_ms=first["unpack_bound_ms"],
+        bound_by="bytes", shape=shape)
+    return out
+
+
 def check_decode(dev, results):
-    """Phase `decode`: the main path, with launch counts."""
+    """Phase `decode`: the main path, with launch counts, and the layout
+    kernels at the chained cells' shapes (`check_layout`)."""
     from turbotpu_torch import turbo_decode
+    from turbotpu_torch.decoder import layout
     from turbotpu_torch.harness.bench import flagship_config, make_decode_inputs
 
     K, B, ebn0 = 6144, 1024, 2.0
@@ -584,11 +698,19 @@ def check_decode(dev, results):
     bits = torch.from_numpy(bits).to(dev)
     rec = {"K": K, "B": B, "ebn0_db": ebn0}
 
+    for name in layout.LAYOUT_LAUNCHES:
+        layout.LAYOUT_LAUNCHES[name] = 0
     (hard, iters, L), launched = count_launches(
         results, lambda: turbo_decode(*inputs, flagship_config()))
     if not only(launched, siso_nii=12):
         raise AssertionError(f"lean decode: 12 siso_nii launches expected, "
                              f"counted {launched}")
+    rec["layout_launches"] = dict(layout.LAYOUT_LAUNCHES)
+    if rec["layout_launches"] != {"pack_kernel": 1, "unpack_kernel": 1}:
+        raise AssertionError(f"lean decode: one launch of each layout kernel "
+                             f"expected, counted {rec['layout_launches']}")
+    for name, n in rec["layout_launches"].items():
+        results[name]["launches"] = results[name].get("launches", 0) + n
     if hard.shape != (B, K) or L.shape != (B, K) or iters.shape != (B,):
         raise AssertionError("decode outputs have the wrong shape")
     if not bool(torch.isfinite(L).all()):
@@ -620,6 +742,9 @@ def check_decode(dev, results):
         flagship_config(K=168, window=32, early_term="crc"))
     rec["small_exact_vs_cpu_L_max_abs_diff"] = small_decode_vs_cpu(
         flagship_config(K=168, window=32, early_term="crc", nii=False))
+    del inputs, bits, hard, iters, L, hard_c, iters_c, hard_x
+    torch.cuda.empty_cache()
+    rec["layout"] = check_layout(dev, results)
     emit("decode", **rec)
 
 
@@ -2325,6 +2450,7 @@ def main(argv) -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 1
     from turbotpu_torch import _build
+    from turbotpu_torch.decoder import layout
     from turbotpu_torch.dist import dma
     from turbotpu_torch.experiments import cost_breakdown, gather_inkernel
     from turbotpu_torch.harness.bench import card_info
@@ -2357,7 +2483,8 @@ def main(argv) -> int:
     # every kernel of the port, one nvcc process each, all started together
     t0 = time.perf_counter()
     targets = build_targets() + [gather_inkernel.TARGET,
-                                 cost_breakdown.TARGET, dma.TARGET]
+                                 cost_breakdown.TARGET, dma.TARGET,
+                                 layout.TARGET]
     libs = _build.build(targets)
     for name, defines in libs:
         _build.load(name, defines)
@@ -2402,6 +2529,13 @@ def main(argv) -> int:
         "source": "turbotpu_torch/csrc/ring_xch.cu",
         "replaces": "turbotpu/dist/dma.py:94 (boundary_exchange_dma, "
                     "pallas_call at :119, body _xch_kernel :56)"}
+    for name, what in (("pack_kernel", ":120 stream"),
+                       ("unpack_kernel", ":186 full_llr")):
+        results[name] = {
+            "name": name, "route": "cuda",
+            "source": "turbotpu_torch/csrc/layout.cu",
+            "replaces": f"none: XLA fuses turbotpu/decoder/turbo_cells.py"
+                        f"{what}", "library_ms": None}
     run = {"kernels": lambda: check_kernels(dev, results),
            "decode": lambda: check_decode(dev, results),
            "bench": lambda: run_bench(dev, card, results),

@@ -6,8 +6,9 @@ a transpose, and the kernel forms the branch metrics itself: the only
 per-iteration work outside it is the extrinsic interleave gather
 (`index_select` along time, or for a mixed-K batch one `torch.gather` along
 time through a per-codeword `(KTp, B)` index) and the early-termination
-bookkeeping.  Channel-LLR packing and hard-bit unpacking cross layouts once
-each.
+bookkeeping.  Channel-LLR packing and the output assembly cross layouts
+once each, one kernel launch each on the card (layout.py), inside the
+ranges `turbo.pack` and `turbo.unpack`.
 
 With `cfg.fold_gather` (NII, shared interleaver table) the gathers leave the
 loop too: each SISO reads the other's raw extrinsic output through its own
@@ -30,9 +31,10 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..siso.cuda_kernel import (BIG, FP8, _round_up, launch_count,
+from ..siso.cuda_kernel import (FP8, _round_up, launch_count,
                                 siso_cells, window_len)
 from .early_term import _crc_check_matrix_np
+from .layout import assemble_outputs, full_llr, pack_streams
 from .turbo import DecoderConfig
 
 _STREAM_TYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -106,26 +108,17 @@ def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
         perm_e = torch.from_numpy(np.concatenate([perm, ext])).to(dev)
         inv_e = torch.from_numpy(
             np.concatenate([cfg.inv().astype(np.int64), ext])).to(dev)
-        perm_t = torch.from_numpy(perm).to(dev)
         g_perm = lambda x: x.index_select(0, perm_e)
         g_inv = lambda x: x.index_select(0, inv_e)
-        g_sys = lambda x: x.index_select(1, perm_t)
     else:
         perm_e, inv_e = (time_major_index(t, KTp) for t in (perm_b, inv_b))
         g_perm = lambda x: torch.gather(x, 0, perm_e)
         g_inv = lambda x: torch.gather(x, 0, inv_e)
-        g_sys = lambda x: torch.gather(x, 1, perm_b)
 
-    def stream(body, tail, pad_val):
-        """(B, K) body + (B, 3) tail -> (KTp, B) stream with the time pad."""
-        full = torch.cat([body, tail], dim=1)
-        full = torch.nn.functional.pad(full, (0, KTp - KT), value=pad_val)
-        return full.to(dt).T.contiguous()
-
-    ls1 = stream(ls, tail1[:, 0::2], BIG)
-    lp1s = stream(lp1, tail1[:, 1::2], 0.0)
-    ls2 = stream(g_sys(ls), tail2[:, 0::2], BIG)
-    lp2s = stream(lp2, tail2[:, 1::2], 0.0)
+    with record_function("turbo.pack"):
+        # ls2's body: ls along perm_e's first K rows (shared or per codeword)
+        ls1, lp1s, ls2, lp2s = pack_streams(ls, lp1, lp2, tail1, tail2, KTp,
+                                            dt, perm_e[:K])
 
     # fold_gather: both SISOs read the other's RAW extrinsic tensor through
     # their own gather table inside the kernel.  Shared-table NII batches
@@ -182,18 +175,16 @@ def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
     # into the a-priori scale multiply.)
     deq = scale * (qs if qs else 1.0)
 
-    def full_llr(le21, le1):
-        return ls1[:K].to(f32) + deq * (le1[:K].view(dte).to(f32)
-                                        + le21[:K].view(dte).to(f32))
-
     step = half_iters_fold if fold else half_iters
 
     def outputs(le21, le1, iters):
         # L and the hard bits are formed once, after the loop.  Under fold
         # the carry was raw le2: the one de-interleave for L runs here.
-        L = full_llr(g_inv(le21) if fold else le21, le1)
-        hard = (L < 0).to(torch.int8)
-        return hard.T.contiguous(), iters, L.T.contiguous()
+        with record_function("turbo.unpack"):
+            hard, L = assemble_outputs(ls1, le1,
+                                       g_inv(le21) if fold else le21, K, deq,
+                                       dte)
+        return hard, iters, L
 
     if cfg.early_term == "none":
         # Lean loop: no L/hard/freeze bookkeeping inside.
@@ -240,7 +231,7 @@ def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
             # Under fold the carry holds raw le2; the convergence check needs
             # natural order, so ONE gather per iteration remains (vs two).
             le21_nat = g_inv(le21_new) if fold else le21_new
-            hard_new = (full_llr(le21_nat, le1_new) < 0)
+            hard_new = (full_llr(ls1, le1_new, le21_nat, K, deq, dte) < 0)
 
             if cfg.early_term == "crc":
                 synd = hard_new.T.to(f32) @ G                    # (B, 24)
