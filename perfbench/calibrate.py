@@ -3,7 +3,8 @@ card.  Not part of a run.
 
     python3 perfbench/calibrate.py readings --workload NAME --seeds S ...
         per seed, the compared numbers of the program's outputs of the
-        cell's sample (the batches decoded once, outside a window) against
+        cell's sample (the pool decoded once in a window's order, after
+        the warm-up, outside a window) against
         the reference, and of the control (the reference with 4-bit
         extrinsic codes in the program's place) against the same reference:
         the lower and upper readings of each limit;
@@ -36,10 +37,17 @@ def readings(cell, seeds, dev):
         t0 = time.perf_counter()
         pool = cell.make_pool(seed, dev)
         batches, units = cell.sample(seed)
-        kept = {b: fn(pool[b]) for b in batches}
+        # in a window's order: the warm-up, then the pool once through
+        for b in cell.warmup(pool):
+            fn(b)
+        kept = {}
+        for p, b in enumerate(pool):
+            out = fn(b)
+            if p in batches:
+                kept[p] = out
         prog = cell.select(kept, batches, units)
-        inputs = {b: pool[b] for b in batches}
-        del pool, kept
+        inputs = {b: pool[b] for b in cell.needs(batches)}
+        del pool, kept, out
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
         ref = cell.reference_outputs(inputs, batches, units, turbo_ref.INT8)

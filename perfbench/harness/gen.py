@@ -3,12 +3,12 @@ seed, in bulk.
 
 Payload bits, CRC-24A (and, for a segmented transport block, CRC-24B per
 code block), the LTE turbo encoder (TS 36.212 section 5.1.3.2), rate
-matching to each block's E_r bits (section 5.1.4.1, redundancy version 0)
-where the configuration has a G, BPSK over AWGN and the channel LLR
-2y / sigma^2.  Everything comes from one `torch.Generator` on the device,
-seeded with the run's seed, so the same seed gives the same inputs.  The
-GF(2) work is exact: the CRC products run in float64 and the encoder's
-feedback is a prefix XOR per residue of its period.
+matching to each block's E_r bits (section 5.1.4.1, at redundancy version 0
+unless asked) where the configuration has a G, BPSK over AWGN and the
+channel LLR 2y / sigma^2.  Everything comes from one `torch.Generator` on
+the device, seeded with the run's seed, so the same seed gives the same
+inputs.  The GF(2) work is exact: the CRC products run in float64 and the
+encoder's feedback is a prefix XOR per residue of its period.
 """
 
 from __future__ import annotations
@@ -124,10 +124,11 @@ def runs(layout) -> list[tuple[int, int]]:
 
 
 def transport_blocks(gen, n: int, A: int, G: int, Qm: int, ebn0_db: float,
-                     chunk: int = 64):
+                     chunk: int = 64, rv: int = 0):
     """n transport blocks of A bits: CRC-24A, segmentation, CRC-24B per
     block when C > 1, filler bits in block 0, turbo encoding and rate
-    matching of block r to E_r bits, BPSK/AWGN at Es/N0 = Eb/N0 * A / G.
+    matching of block r to E_r bits at redundancy version rv, BPSK/AWGN at
+    Es/N0 = Eb/N0 * A / G.
     Returns the received LLRs as one (n * (r1 - r0), E) float32 tensor per
     run of blocks, row (r - r0) * n + t for block r of block t, and the
     transmitted CRC-attached blocks (n, A + 24) int8."""
@@ -147,7 +148,7 @@ def transport_blocks(gen, n: int, A: int, G: int, Qm: int, ebn0_db: float,
             if seg.C > 1:
                 blk = crc_attach(blk, spec.CRC24B)
             d = d_streams(*turbo_encode(blk))
-            sel = torch.from_numpy(spec.selection(K, E, 0, F)).to(dev)
+            sel = torch.from_numpy(spec.selection(K, E, rv, F)).to(dev)
             per_block[r].append(channel(gen, d.index_select(1, sel), esn0))
     blocks = [torch.cat(b) for b in per_block]
     return ([torch.cat(blocks[r0:r1]) for r0, r1 in runs(layout)],

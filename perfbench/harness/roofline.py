@@ -23,18 +23,25 @@ from __future__ import annotations
 import json
 from pathlib import Path
 
+import numpy as np
+
 OPS_PER_STEP = 3 + 24 + 24 + 33          # 84
 STREAM_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1, "float8_e4m3fn": 1}
 PEAKS = Path(__file__).with_name("peaks.json")
 
 
-def siso_work(codeword_iters: int, K: int, decoder: dict
+def siso_work(codeword_iters, codeword_K, decoder: dict
               ) -> tuple[float, float]:
-    """(operations, bytes) of `codeword_iters` iterations summed over
-    codewords (each iteration two SISO half-iterations) of a K-bit trellis
-    (K + 3 steps with the termination).  A codeword counts the iterations it
-    needed, not those its batch ran while it waited for a slower one."""
-    steps = (K + 3) * 2 * codeword_iters
+    """(operations, bytes) of the iterations `codeword_iters` of codewords of
+    K-bit trellises `codeword_K` (K + 3 steps with the termination; each
+    iteration two SISO half-iterations), summed over the codewords: numbers,
+    or arrays that broadcast, such as (batches, codewords) iteration counts
+    against (codewords,) Ks.  A codeword counts the iterations it needed,
+    not those its batch ran while it waited for a slower one, at its own K,
+    not at the bucket's it was decoded in."""
+    its = np.asarray(codeword_iters, dtype=np.int64)
+    Ks = np.asarray(codeword_K, dtype=np.int64)
+    steps = int(((Ks + 3) * 2 * its).sum())
     chan = STREAM_BYTES[decoder["io_dtype"]]
     ext = STREAM_BYTES[decoder["ext_dtype"] or decoder["io_dtype"]]
     return float(OPS_PER_STEP * steps), float((2 * chan + 2 * ext) * steps)

@@ -2,9 +2,11 @@
 could take for the SISO work of the traced batches (the larger of the
 max-log BCJR's operations over the fp32 peak and its stream bytes over the
 memory bandwidth, perfbench/harness/roofline.py, for each codeword's own
-iterations from the outputs: the work its inputs needed), over the device
-time of the operations launched inside the program's `turbo.siso1` and
-`turbo.siso2` ranges."""
+iterations from the outputs at its own K: the work its inputs needed),
+over the device time of the operations launched inside the program's
+`turbo.siso1` and `turbo.siso2` ranges."""
+
+import torch
 
 from perfbench.harness import roofline
 
@@ -18,7 +20,7 @@ def read(run):
     us = tr.device_us(lambda rs: any(r in SISO for r in rs))
     if us <= 0:
         return None
-    need = sum(int(run.iters[b].sum()) for b in run.traced)
-    ops, nbytes = roofline.siso_work(need, run.cell.K,
+    its = torch.stack([run.iters[b] for b in run.traced])
+    ops, nbytes = roofline.siso_work(its, run.cell.codeword_K(),
                                      run.cell.decoder_settings())
     return 100.0 * roofline.least_seconds(ops, nbytes, pk) / (us / 1e6)

@@ -23,10 +23,11 @@ from . import turbo_ref
 BIG_LLR = 1e9
 
 
-def de_rate_match(llr: torch.Tensor, K: int, F: int) -> torch.Tensor:
-    """(n, E) -> (n, 3 (K + 4)), redundancy version 0."""
+def de_rate_match(llr: torch.Tensor, K: int, F: int, rv: int = 0
+                  ) -> torch.Tensor:
+    """(n, E) -> (n, 3 (K + 4)), sent at redundancy version rv."""
     n, E = llr.shape
-    idx = torch.from_numpy(spec.selection(K, E, 0, F)).to(llr.device)
+    idx = torch.from_numpy(spec.selection(K, E, rv, F)).to(llr.device)
     out = torch.zeros((n, 3 * (K + 4)), dtype=torch.float32,
                       device=llr.device)
     seen = set()
@@ -58,17 +59,18 @@ def embedded_perm(K: int, bucket: int) -> torch.Tensor:
 
 
 def receive(llr_runs, n: int, A: int, G: int, Qm: int,
-            dec: turbo_ref.Decoder):
-    """The LLR runs of n transport blocks (gen.transport_blocks' layout)
-    -> (blocks' data reassembled (n, A + 24) int8, CRC-24A verdicts (n,),
-    per-block iterations (C n,) and L (C n, K+)) in block-major rows."""
+            dec: turbo_ref.Decoder, rv: int = 0):
+    """The LLR runs of n transport blocks (gen.transport_blocks' layout),
+    sent at redundancy version rv -> (blocks' data reassembled (n, A + 24)
+    int8, CRC-24A verdicts (n,), per-block iterations (C n,) and L
+    (C n, K+)) in block-major rows."""
     seg, layout = gen.block_layout(A, G, Qm)
     bucket = max(seg.sizes)
     cols = [[] for _ in range(5)]
     perms = []
     for (r0, r1), llr in zip(gen.runs(layout), llr_runs):
         K, _, F = layout[r0]
-        ls, lp1, lp2, t1, t2 = demux(de_rate_match(llr, K, F), K)
+        ls, lp1, lp2, t1, t2 = demux(de_rate_match(llr, K, F, rv), K)
         if F:
             ls = ls.clone()
             ls[:, :F] = BIG_LLR

@@ -134,7 +134,7 @@ def main(argv=None, device=None, root: Path = ROOT, breaker=None) -> int:
         fn = breaker(fn)
     oneshot = cell.traffic["loop"] == "oneshot"
     step = (lambda b: to_host(fn(b))) if oneshot else fn
-    for b in pool[:2]:                  # builds and warms every shape used
+    for b in cell.warmup(pool):         # builds and warms every shape used
         step(b)
     sync()
     marks["warm"] = time.perf_counter() - T0
@@ -202,14 +202,13 @@ def main(argv=None, device=None, root: Path = ROOT, breaker=None) -> int:
     # --- the comparison, the program's state freed first -------------------
     missing = [p for p in sampled if p not in keep]
     prog = cell.select(keep, sampled, units) if not missing else None
-    inputs = [pool[p] for p in sampled]
+    inputs = {p: pool[p] for p in cell.needs(sampled)}
     del pool, keep, out, fn, step
     if on_card:
         torch.cuda.empty_cache()
     from perfbench.reference import turbo_ref
     if prog is not None:
-        ref = cell.reference_outputs(dict(zip(sampled, inputs)), sampled,
-                                     units, turbo_ref.INT8)
+        ref = cell.reference_outputs(inputs, sampled, units, turbo_ref.INT8)
         values = compare.numbers(prog, ref)
         failed = compare.units_wrong(prog, ref)
         correct, shown = compare.judge(values, cell.limits)

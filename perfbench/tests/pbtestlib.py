@@ -1,7 +1,9 @@
 """Helpers of the benchmark's CPU tests: a checkout in a temporary
 directory holding tiny cells of both kinds of configuration, run through
-perfbench/run.py on the CPU (the program's plain PyTorch path)."""
+perfbench/run.py on the CPU (the program's plain PyTorch path), and a toy
+kind whose timed path keeps state across batches, added as files alone."""
 
+import hashlib
 import json
 import shutil
 import sys
@@ -45,13 +47,14 @@ TRAFFIC = {
 
 def write_tiny_checkout(root: Path) -> Path:
     """BENCHMARK.json and perfbench/ data files of the tiny cells, and a
-    copy of the metric readers, under `root`."""
+    copy of the metric readers and the kinds, under `root`."""
     real = json.loads((REPO / "BENCHMARK.json").read_text())
     pb = root / "perfbench"
     for sub in ("configs", "workloads", "limits"):
         (pb / sub).mkdir(parents=True, exist_ok=True)
-    shutil.copytree(REPO / "perfbench" / "metrics", pb / "metrics",
-                    dirs_exist_ok=True)
+    for sub in ("metrics", "kinds"):
+        shutil.copytree(REPO / "perfbench" / sub, pb / sub,
+                        dirs_exist_ok=True)
     cb = json.loads((REPO / "perfbench/configs/lte-cb6144-maxlog.json")
                     .read_text())
     cb["K"] = 256
@@ -105,3 +108,83 @@ def run_cell(root, name, seed=3000000001, trace=0, breaker=None,
                   breaker=breaker)
     out = capsys.readouterr().out.strip().splitlines() if capsys else []
     return rc, (json.loads(out[-1]) if out else None)
+
+
+# a kind whose timed path keeps device state from one batch to the next
+TOY_KIND = '''"""kind "toy_combine": the code blocks of kind "codeblock", each batch's
+channel LLRs added to those of the pool batch decoded before it (chase
+combining in miniature).  The timed path keeps the last batch's LLRs on the
+device; the reference rebuilds the same sums from the pool."""
+
+from pathlib import Path
+
+from perfbench.harness import cell
+
+ROOT = Path(__file__).resolve().parents[2]
+Base = cell.kind_module(ROOT, "codeblock").Cell
+
+
+class Cell(Base):
+
+    def warmup(self, pool):
+        # ends on the pool's last batch: batch 0's predecessor, as in a loop
+        return pool[-2:]
+
+    def needs(self, sampled):
+        P = self.traffic["pool_batches"]
+        return sorted(set(sampled) | {(p - 1) % P for p in sampled})
+
+    def timed_path(self, device):
+        decode, to_host = super().timed_path(device)
+        store = {}
+
+        def fn(batch):
+            prev = store.get("prev")
+            both = batch if prev is None else tuple(
+                a + b for a, b in zip(batch, prev))
+            out = decode(both)
+            store["prev"] = tuple(x.clone() for x in batch)
+            return out
+        fn.store = store
+        return fn, to_host
+
+    def reference_outputs(self, pool, batches, units, precision):
+        P = self.traffic["pool_batches"]
+        both = {p: tuple(a + b for a, b in zip(pool[p], pool[(p - 1) % P]))
+                for p in batches}
+        return super().reference_outputs(both, batches, units, precision)
+'''
+
+
+def add_toy_combine(root: Path) -> str:
+    """Adds the toy kind, a configuration, a traffic mix, limits and a cell
+    "toy" of it to the checkout at `root` as new files and a new entry;
+    returns the cell's name."""
+    pb = root / "perfbench"
+    (pb / "kinds" / "toy_combine.py").write_text(TOY_KIND)
+    cfg = json.loads((pb / "configs" / "cb.json").read_text())
+    (pb / "configs" / "toy.json").write_text(
+        json.dumps({**cfg, "kind": "toy_combine"}))
+    (pb / "workloads" / "combine.json").write_text(
+        json.dumps(TRAFFIC["lean"]))
+    shutil.copy(REPO / "perfbench" / "limits" / "cb6144-b16384-lean.json",
+                pb / "limits" / "toy.json")
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "toy", "source": "test", "reduced": [],
+                             "file": "perfbench/configs/toy.json",
+                             "why": "t"})
+    bench["workloads"].append({"name": "toy", "config": "toy",
+                               "traffic": "combine", "chips": 1,
+                               "why": "test"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "cb.lean" in m.get("workloads", ()):
+            m["workloads"].append("toy")
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return "toy"
+
+
+def digest(t) -> str:
+    """SHA-256 of a tensor's type, shape and bytes."""
+    t = t.contiguous().cpu()
+    return hashlib.sha256(f"{t.dtype}{tuple(t.shape)}".encode()
+                          + t.numpy().tobytes()).hexdigest()

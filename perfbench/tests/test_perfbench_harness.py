@@ -1,6 +1,7 @@
 """perfbench/run.py driven end to end on the CPU at tiny sizes: the result
-line, the data-driven lookup of cells and metrics, the faults that have to
-make `correct` false, the control, and what the benchmark imports."""
+line, the data-driven lookup of cells, kinds and metrics, the faults that
+have to make `correct` false, the control, and what the benchmark
+imports."""
 
 import ast
 import json
@@ -11,9 +12,13 @@ from pathlib import Path
 import pytest
 import torch
 
-from pbtestlib import REPO, TINY, run_cell
+from pbtestlib import REPO, TINY, add_toy_combine, digest, run_cell
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "turbotpu"}
+# what each cell made and read at seed 3000000001 before the kinds moved out
+# of perfbench/harness/cell.py
+RECORDED = json.loads((Path(__file__).parent / "recorded_cells.json")
+                      .read_text())
 
 
 @pytest.mark.parametrize("name", sorted(TINY))
@@ -66,6 +71,72 @@ def test_a_cell_and_a_metric_are_added_as_files_alone(tiny, capsys):
     assert "mbit_per_s" not in res["metrics"]
 
 
+def test_a_kind_is_added_as_files_alone(tiny, capsys):
+    """A later change adds a configuration of a new kind (the kind's module,
+    its configuration, traffic and limits files, a workload entry) and
+    edits no file: here a kind whose timed path keeps state on the device
+    across batches, checked against a reference that rebuilds it."""
+    harness = [REPO / "perfbench" / "harness" / "cell.py",
+               REPO / "perfbench" / "run.py"]
+    before = [p.read_bytes() for p in harness]
+    files = {p: p.read_bytes() for p in (tiny / "perfbench").rglob("*")
+             if p.is_file()}
+    name = add_toy_combine(tiny)
+    assert all(p.read_bytes() == b for p, b in files.items())
+    rc, res = run_cell(tiny, name, capsys=capsys)
+    assert rc == 0 and res["correct"] and res["failed"] == 0
+    assert res["metrics"]["mbit_per_s"]["value"] > 0
+    assert [p.read_bytes() for p in harness] == before
+
+
+def test_an_unknown_kind_fails_at_load(tiny):
+    from perfbench.harness.cell import Cell
+    path = tiny / "perfbench" / "configs" / "cb.json"
+    path.write_text(json.dumps({**json.loads(path.read_text()),
+                                "kind": "convolutional"}))
+    with pytest.raises(ValueError, match="perfbench/kinds/convolutional.py"):
+        Cell.load("cb.lean", tiny)
+
+
+@pytest.mark.parametrize("name", sorted(TINY))
+def test_the_kinds_make_and_read_what_the_harness_did(tiny, capsys, name):
+    """Each tiny cell's pool, its reference's outputs, its compared
+    numbers and what its kind says of it, as recorded before the kinds
+    moved out of the harness."""
+    from perfbench.harness.cell import Cell
+    from perfbench.reference import turbo_ref
+    rec, seed = RECORDED[name], 3000000001
+    cell = Cell.load(name, tiny)
+    pool = cell.make_pool(seed, torch.device("cpu"))
+    assert [digest(x) for b in pool for x in b] == rec["pool"]
+    batches, units = cell.sample(seed)
+    assert [batches, units] == rec["sample"]
+    ref = cell.reference_outputs({b: pool[b] for b in cell.needs(batches)},
+                                 batches, units, turbo_ref.INT8)
+    assert {k: digest(v) for k, v in ref.items() if v is not None} == \
+        rec["reference"]
+    assert (cell.K, cell.rows, cell.info_bits, cell.crc,
+            cell.decoder_settings()) == \
+        (rec["K"], rec["rows"], rec["info_bits"], rec["crc"], rec["decoder"])
+    assert cell.warmup(pool) == pool[:2]
+    rc, res = run_cell(tiny, name, seed=seed, capsys=capsys)
+    assert {k: v["value"] for k, v in res["compared"].items()} == \
+        rec["compared"]
+
+
+@pytest.mark.parametrize("name", ["cb6144-b16384-lean", "tb75376-n512-crc",
+                                  "cb6144-b64-lean-oneshot"])
+def test_the_committed_cells_kinds_say_what_the_harness_did(name):
+    from perfbench.harness.cell import Cell
+    rec = RECORDED[name]
+    cell = Cell.load(name)
+    assert (cell.K, cell.rows, cell.info_bits, cell.crc,
+            cell.decoder_settings(), list(cell.sample(3000000001))) == \
+        (rec["K"], rec["rows"], rec["info_bits"], rec["crc"], rec["decoder"],
+         rec["sample"])
+    assert cell.codeword_K().tolist() == [cell.K] * cell.rows
+
+
 def _alter_an_answer(fn):
     """Each batch's first answer (a code block, or a transport block with
     its first code block's LLRs) comes out inverted."""
@@ -92,13 +163,45 @@ def _half_the_batch(fn):
     return broken
 
 
-@pytest.mark.parametrize("fault", ["unchanged_state", "half_batch",
-                                   "altered_answer"])
-@pytest.mark.parametrize("name", ["cb.lean", "cb.one", "tb.one"])
+def _stale_store(fn):
+    """The timed path's store is never updated after its first batch, so
+    every later batch combines with that one."""
+    def broken(batch):
+        first = dict(fn.store)
+        out = fn(batch)
+        if first:
+            fn.store.update(first)
+        return out
+    return broken
+
+
+def _older_batch(fn):
+    """Each batch combines with the batch two before it, not the last."""
+    past = []
+
+    def broken(batch):
+        past.append(dict(fn.store))
+        if len(past) > 1:
+            fn.store.clear()
+            fn.store.update(past[-2])
+        return fn(batch)
+    return broken
+
+
+FAULTS = [(n, f) for n in ("cb.lean", "cb.one", "tb.one")
+          for f in ("unchanged_state", "half_batch", "altered_answer")] + \
+    [("toy", f) for f in ("unchanged_state", "altered_answer", "stale_store",
+                          "older_batch")]
+
+
+@pytest.mark.parametrize("name,fault", FAULTS)
 def test_a_planted_fault_is_not_correct(tiny, capsys, monkeypatch, fault,
                                         name):
     """Each fault the cells can have (one card: no exchange between
-    chips) turns `correct` false."""
+    chips; and where the timed path keeps state across batches, that state
+    stale or taken from the wrong batch) turns `correct` false."""
+    if name == "toy":
+        add_toy_combine(tiny)
     breaker = None
     if fault == "unchanged_state":
         import turbotpu_torch.decoder.turbo_cells as tc
@@ -110,7 +213,9 @@ def test_a_planted_fault_is_not_correct(tiny, capsys, monkeypatch, fault,
         monkeypatch.setattr(tc, "siso_cells", stale)
     else:
         breaker = {"half_batch": _half_the_batch,
-                   "altered_answer": _alter_an_answer}[fault]
+                   "altered_answer": _alter_an_answer,
+                   "stale_store": _stale_store,
+                   "older_batch": _older_batch}[fault]
     rc, res = run_cell(tiny, name, breaker=breaker, capsys=capsys)
     assert rc == 0 and res["correct"] is False and res["failed"] > 0
 
@@ -127,7 +232,7 @@ def test_the_control_is_not_correct(tiny, name):
     for seed in (1, 2, 3):
         pool = cell.make_pool(seed, torch.device("cpu"))
         batches, units = cell.sample(seed)
-        inputs = {b: pool[b] for b in batches}
+        inputs = {b: pool[b] for b in cell.needs(batches)}
         ref = cell.reference_outputs(inputs, batches, units, turbo_ref.INT8)
         ctl = cell.reference_outputs(inputs, batches, units, turbo_ref.INT4)
         fails += not compare.judge(compare.numbers(ctl, ref), cell.limits)[0]

@@ -86,3 +86,17 @@ def test_control_precision_is_coarser():
     assert turbo_ref.INT4.code_max == 7
     assert turbo_ref.INT4.step * 7 == pytest.approx(127 * 0.25)
     assert dataclasses.replace(turbo_ref.INT8).step == 0.25
+
+
+def test_a_block_sent_at_a_redundancy_version_decodes_at_it():
+    """A transport block rate-matched at rv 2 and de-rate-matched at rv 2
+    decodes, by the plain reference, to the bits sent at a high SNR; read
+    as rv 0 it does not."""
+    A, G, Qm = 250, 600, 2
+    g = torch.Generator().manual_seed(17)
+    runs, tx = gen.transport_blocks(g, 4, A, G, Qm, 6.0, rv=2)
+    dec = turbo_ref.Decoder(K=280, window=64)
+    tb, ok, _, _ = rx_ref.receive(runs, 4, A, G, Qm, dec, rv=2)
+    assert torch.equal(tb, tx) and ok.all()
+    tb0, ok0, _, _ = rx_ref.receive(runs, 4, A, G, Qm, dec)
+    assert not ok0.any() and not torch.equal(tb0, tx)

@@ -89,6 +89,13 @@ def test_siso_work_counted_by_hand():
     assert roofline.siso_work(1, 5, d) == (84 * 8 * 2, 6 * 8 * 2)
     assert roofline.siso_work(6, 5, {"io_dtype": "float32",
                                      "ext_dtype": ""})[1] == 16 * 8 * 2 * 6
+    # each codeword at its own K: the count at one K for every codeword is
+    # the single-K count, and a K+/K- batch counts each block at its own
+    its = torch.tensor([[6, 3, 1], [2, 6, 6]])
+    assert roofline.siso_work(its, [6144] * 3, d) == \
+        roofline.siso_work(int(its.sum()), 6144, d)
+    assert roofline.siso_work(its, np.array([40, 40, 48]), d)[0] == \
+        84 * 2 * ((40 + 3) * (6 + 3 + 2 + 6) + (48 + 3) * (1 + 6))
     pk = {"fp32_ops_per_s": 100.0, "hbm_bytes_per_s": 10.0}
     assert roofline.least_seconds(1000.0, 50.0, pk) == 10.0
     assert roofline.least_seconds(100.0, 50.0, pk) == 5.0
@@ -99,17 +106,38 @@ def test_roofline_counts_each_codewords_own_iterations():
     """An early-terminated batch runs until its slowest codeword is done;
     the roofline's work counts what each codeword needed (1 + 3 + 6 + 6
     iterations over the two traced batches), not codewords x the batch's
-    largest count (2 x 3 + 2 x 6)."""
+    largest count (2 x 3 + 2 x 6), each at its own K: (5, 13) is a batch
+    of a K- and a K+ block, 8 x 2 x 7 + 16 x 2 x 9 = 400 steps, where the
+    bucket's K would count 512."""
     from types import SimpleNamespace
 
     from perfbench import run
     d = {"io_dtype": "bfloat16", "ext_dtype": "int8"}
     trace = SimpleNamespace(n_batches=2, device_us=lambda select: 1e6)
     ops = 84 * 8 * 2 * 16.0
-    fake = SimpleNamespace(
-        trace=trace, traced=range(1, 3),
-        iters=[torch.tensor([6, 6]), torch.tensor([1, 3]),
-               torch.tensor([6, 6])],
-        peak=lambda: {"fp32_ops_per_s": 4 * ops, "hbm_bytes_per_s": 1e30},
-        cell=SimpleNamespace(K=5, decoder_settings=lambda: d))
-    assert run.read_metric(REPO, "siso_roofline", fake) == 25.0
+    for Ks, share in (((5, 5), 25.0), ((5, 13), 39.0625)):
+        fake = SimpleNamespace(
+            trace=trace, traced=range(1, 3),
+            iters=[torch.tensor([6, 6]), torch.tensor([1, 3]),
+                   torch.tensor([6, 6])],
+            peak=lambda: {"fp32_ops_per_s": 4 * ops,
+                          "hbm_bytes_per_s": 1e30},
+            cell=SimpleNamespace(codeword_K=lambda: np.array(Ks),
+                                 decoder_settings=lambda: d))
+        assert run.read_metric(REPO, "siso_roofline", fake) == share
+
+
+def test_a_transport_block_kind_gives_each_block_its_own_K(tiny):
+    """A = 6208: B = 6232, C = 2 blocks, a K- = 3136 first (with the 56
+    filler bits), then a K+ = 3200; a batch's rows are block-major."""
+    import json
+
+    from perfbench.harness.cell import Cell
+    path = tiny / "perfbench" / "configs" / "tb.json"
+    path.write_text(json.dumps({**json.loads(path.read_text()),
+                                "A": 6208, "G": 19200}))
+    cell = Cell.load("tb.one", tiny)
+    seg = spec.segment(6208 + 24)
+    assert (seg.C, seg.C_minus, seg.K_minus, seg.K_plus) == (2, 1, 3136, 3200)
+    assert cell.K == 3200 and cell.rows == 4
+    assert cell.codeword_K().tolist() == [3136, 3136, 3200, 3200]
