@@ -4,12 +4,12 @@
     python3 chip_smoke.py [--ptxas] [--phases kernels,decode,...]
 
 Phases: kernels, decode, bench, mixed, gather, encoder, fold, calibrate, tb,
-seq, fp8, dist, compact, ber, profile, variants, harness, experiments.
+harq, seq, fp8, dist, compact, ber, profile, variants, harness, experiments.
 
-Needs one NVIDIA card, nvcc and no network.  It builds the port's CUDA
-kernels from turbotpu_torch/csrc (siso.cu in all its 72 variants,
-row_gather.cu, issue_rate.cu, ring_xch.cu, layout.cu), holds each against its
-plain PyTorch version on the card (every SISO kernel, exact, NII, folded and
+Needs one NVIDIA card, nvcc and no network. It builds the port's CUDA kernels
+from turbotpu_torch/csrc (siso.cu in all its 72 variants, row_gather.cu,
+issue_rate.cu, ring_xch.cu, layout.cu, harq.cu), holds each against its plain
+PyTorch version on the card (every SISO kernel, exact, NII, folded and
 boundary, at difference 0 in every mode, also at batches that are not a
 multiple of their blocks, in one window or one segment and with masked rows;
 the two passes of the exact, NII, folded and boundary kernels timed apart),
@@ -37,6 +37,14 @@ and drives the port's entry points:
   on C6 (A=12000, two code blocks, rate 1/2) at two grid points held to the
   recorded counts, and `transport.decode_transport_block` on one block made
   on the host (phase `tb`);
+* `turbotpu_torch.harq`, the HARQ receiver: the combine kernel of harq.cu
+  against its plain version byte for byte at the PUSCH HARQ cell's shapes
+  (K=5824, E 6642 and 6648, 512 slots, rows of all four redundancy
+  versions, new and retransmitted), timed against it and against its byte
+  bound at the cell's mix, a receiver on the card against the same on
+  the CPU over TTIs of two processes, with its counts, and a receiver at
+  the cell's size whose TTIs each launch one combine a run of blocks and
+  the decode's kernels, nothing else (phase `harq`);
 * `turbotpu_torch.harness.c5.run_c5` (`cli c5`), the sequence-sharded decode
   of C5 (K=6144, 4096 codewords, max-log, 6 iterations, bf16 streams, CRC
   early termination at 0.8 dB) on a local mesh of the one card, seq=2 exact
@@ -90,6 +98,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -105,8 +114,9 @@ MODES = ("maxlog", "linlog", "logmap")
 _PALLAS = "turbotpu/siso/pallas_kernel.py"
 KERNEL_SOURCE = "turbotpu_torch/csrc/siso.cu"
 ALL_PHASES = ("kernels", "decode", "bench", "mixed", "gather", "encoder",
-              "fold", "calibrate", "tb", "seq", "fp8", "dist", "compact",
-              "ber", "profile", "variants", "harness", "experiments")
+              "fold", "calibrate", "tb", "harq", "seq", "fp8", "dist",
+              "compact", "ber", "profile", "variants", "harness",
+              "experiments")
 
 # kernel vs plain version on the card: difference 0 in every mode.  The
 # kernels and the plain versions do the same fp32 operations in the same
@@ -525,12 +535,15 @@ def check_parallel_edges(dev, worst):
 
 
 def launch_counters():
-    """The launch counts of every kernel wrapper of the port."""
+    """The launch counts of every kernel wrapper of the port but the layout
+    kernels' (`layout.LAYOUT_LAUNCHES`, which the callers of a decode read
+    themselves)."""
+    from turbotpu_torch import harq
     from turbotpu_torch.dist import dma
     from turbotpu_torch.experiments import cost_breakdown, gather_inkernel
     from turbotpu_torch.siso import cuda_kernel as ck
     return (ck.LAUNCHES, ck.FP8_LAUNCHES, gather_inkernel.LAUNCHES,
-            cost_breakdown.LAUNCHES, dma.LAUNCHES)
+            cost_breakdown.LAUNCHES, dma.LAUNCHES, harq.COMBINE_LAUNCHES)
 
 
 def count_launches(results, fn):
@@ -1052,13 +1065,17 @@ def run_tb(dev, card, results):
             results, lambda: tb.simulate_tb_point(cfg, ebn0, step))
         rec["launches"] = {k: v for k, v in launched.items() if v}
         rec["card"] = card
+        # each batch combines its one transmission of each block: one
+        # launch a block (C6's two blocks differ in K)
+        combines = rec["tbs"] // C6_TB.n_tb * rec["C"] * len(rec["rvs"])
         for key in ("ber", "tbler", "avg_iters", "mbit_per_s", "wall_s"):
             if not np.isfinite(rec[key]):
                 raise AssertionError(f"C6: {key} is not finite: {rec}")
         if rec["tbs"] != cap:
             raise AssertionError(f"C6: ran {rec['tbs']} transport blocks, "
                                  f"{cap} expected")
-        if rec["launches"] != {"siso_exact": 2 * rec["iter_batches"]}:
+        if rec["launches"] != {"siso_exact": 2 * rec["iter_batches"],
+                               "combine_kernel": combines}:
             raise AssertionError(f"C6: launches {rec['launches']} for "
                                  f"{rec['iter_batches']} batch-iterations")
         te_ref, n_ref = REFERENCE_TBLER[ebn0]
@@ -1094,6 +1111,180 @@ def run_tb(dev, card, results):
         raise AssertionError(f"decode_transport_block: {host}")
     emit("tb", card=card, points=len(recs),
          tbs=sum(r["tbs"] for r in recs), host_pipeline=host)
+
+
+# the PUSCH HARQ cell (tb75376-harq8-n512): transport block, slots a TTI,
+# and the shares of the transmission indices of its slots
+HARQ_CELL = dict(A=75376, G=86400, Qm=6, slots=512)
+HARQ_MIX = (0.602, 0.367, 0.024, 0.006)
+
+
+def harq_bytes(K, E, F, blocks, rv, new) -> float:
+    """Least bytes of one combine of `blocks` blocks of (K, E, F) at each
+    slot's redundancy version and new-data flag: the benchmark's count,
+    perfbench/metrics/harq_combine_roofline.py::combine_bytes."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "perfbench" / "metrics" \
+        / "harq_combine_roofline.py"
+    spec = importlib.util.spec_from_file_location("harq_roofline", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.combine_bytes([(K, E, F)] * blocks, rv.cpu().numpy(),
+                             new.cpu().numpy())
+
+
+def check_harq(dev, card, results):
+    """Phase `harq`: the combine kernel of csrc/harq.cu against its plain
+    version on the same card tensors, byte for byte, at the PUSCH HARQ
+    cell's two runs of blocks (K=5824, E=6642 x 4 blocks and 6648 x 9, 512
+    slots), with rows of every redundancy version, new and retransmitted;
+    timed at the cell's mix of transmissions against the plain version and
+    the bound of its bytes; a receiver on the card over TTIs of two
+    processes against the same receiver on the CPU (hard bits, verdicts,
+    iterations and L equal), and its counts; then a receiver at the cell's
+    size over TTIs of the cell's mix, each counted alone: one combine launch
+    a run of blocks, the decode's SISO and layout launches, nothing else."""
+    from turbotpu_torch import harq
+    from turbotpu_torch.decoder import layout
+    from turbotpu_torch.decoder.turbo import DecoderConfig
+    from turbotpu_torch.harness.profiling import compiled_stats
+    from turbotpu_torch.siso.cuda_kernel import kernel_name
+    from turbotpu_torch.spec.crc import CRC24A_POLY, CRC24B_POLY
+    from turbotpu_torch.spec.segmentation import segment_params
+
+    def same_bytes(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    def decoder(K, W, poly):
+        return DecoderConfig(K=K, n_iters=6, mode="maxlog", ext_scale=0.75,
+                             siso="cuda", io_dtype="bfloat16",
+                             ext_dtype="int8", ext_qscale=0.25, nii=True,
+                             window=W, early_term="crc", crc_poly=poly)
+
+    A, G, Qm, n = (HARQ_CELL[k] for k in ("A", "G", "Qm", "slots"))
+    bucket = max(segment_params(A + 24).sizes)
+    cell_cfg = decoder(bucket, 256, CRC24B_POLY)
+    # the cell's runs of blocks and tables, from one process's receiver
+    cell_rx = harq.HarqReceiver(A, G, Qm, n, cell_cfg, processes=1,
+                                device=dev)
+    g = torch.Generator(device=dev).manual_seed(19)
+    rvs = torch.tensor((0, 2, 3, 1), device=dev)
+    shapes = []
+    for (r0, r1, (K, E, F)), (table, period) in zip(cell_rx.runs,
+                                                     cell_rx.tables):
+        rows = (r1 - r0) * n
+        llr = torch.randn((rows, E), generator=g, device=dev) * 4
+        start = [torch.randn((rows, w), generator=g, device=dev)
+                 for w in (bucket,) * 3 + (6, 6)]
+        # every redundancy version, new and retransmitted, in one call
+        rv = torch.arange(n, device=dev) % 4
+        new = (torch.arange(n, device=dev) // 4) % 2 == 0
+        got = tuple(x.clone() for x in start)
+        want = tuple(x.clone() for x in start)
+        harq.combine(got, llr, table, period, rv, new)
+        harq.combine_plain(want, llr, table, period, rv, new)
+        if not all(same_bytes(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"the combine kernel differs from its "
+                                 f"plain version at K={K}, E={E}")
+        # the cell's mix: transmission index i with share HARQ_MIX[i]
+        k = torch.multinomial(torch.tensor(HARQ_MIX, device=dev), n,
+                              replacement=True, generator=g)
+        rv, new = rvs[k], k == 0
+        nbytes = harq_bytes(K, E, F, r1 - r0, rv, new)
+        rec = {"K": K, "E": E, "F": F, "rows": rows, "period": period,
+               "equal": True, "new_share": float(new.float().mean()),
+               "ms": time_launches(lambda: harq.combine(
+                   got, llr, table, period, rv, new), 20),
+               "plain_ms": time_launches(lambda: harq.combine_plain(
+                   want, llr, table, period, rv, new), 5),
+               "bytes": nbytes,
+               "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3}
+        rec["roofline_pct"] = 100 * rec["bound_ms"] / rec["ms"]
+        shapes.append(rec)
+        del llr, start, got, want
+    del cell_rx
+    torch.cuda.empty_cache()
+
+    # a receiver on the card against one on the CPU: two processes, TTIs
+    # of every redundancy version, one block of K=280 with 6 fillers
+    cfg = decoder(280, 64, CRC24A_POLY)
+    card_rx = harq.HarqReceiver(250, 600, 2, 16, cfg, processes=2,
+                                device=dev)
+    cpu_rx = harq.HarqReceiver(250, 600, 2, 16, cfg, processes=2,
+                               device="cpu")
+    gc = torch.Generator().manual_seed(23)
+    for tti in range(8):
+        llr = [torch.randn(16, 600, generator=gc) * 1.5 + 1.0]
+        rv = rvs.cpu()[torch.arange(16) % 4 if tti >= 2 else
+                       torch.zeros(16, dtype=torch.long)]
+        new = (torch.arange(16) + tti) % 3 == 0 if tti >= 2 else \
+            torch.ones(16, dtype=torch.bool)
+        x = card_rx.receive(tti % 2, [llr[0].to(dev)], rv.to(dev),
+                            new.to(dev))
+        y = cpu_rx.receive(tti % 2, llr, rv, new)
+        diff = max_diff(x["L"].cpu(), y["L"])
+        for key in ("hard", "ok", "iters", "n_tx"):
+            if not torch.equal(x[key].cpu(), y[key]) or diff > 1e-4:
+                raise AssertionError(f"the receiver on the card differs from "
+                                     f"the CPU's in {key} at TTI {tti} (L "
+                                     f"{diff})")
+    if card_rx.counts() != cpu_rx.counts():
+        raise AssertionError(f"counts {card_rx.counts()} on the card, "
+                             f"{cpu_rx.counts()} on the CPU")
+    small_counts = card_rx.counts()
+    del card_rx, cpu_rx
+
+    # the main path at the cell's size: two processes, a TTI of new data on
+    # each, a TTI of retransmissions at rv 2 on each, then two of the cell's
+    # mix; the all-zero transport block (its CRCs are zero) sent as BPSK
+    # LLRs at Es/N0 0 dB (mean 4, variance 8): a first transmission runs to
+    # the cap, a buffer of two stops early.  Each TTI's launches counted
+    # alone.
+    rx = harq.HarqReceiver(A, G, Qm, n, cell_cfg, processes=2, device=dev)
+    siso = kernel_name(True, "maxlog")
+    per_tti = []
+    for tti in range(6):
+        k = (torch.full((n,), tti // 2, dtype=torch.long, device=dev)
+             if tti < 4 else
+             torch.multinomial(torch.tensor(HARQ_MIX, device=dev), n,
+                               replacement=True, generator=g))
+        rv, new = rvs[k], k == 0
+        llr = [torch.randn(((r1 - r0) * n, E), generator=g, device=dev)
+               * math.sqrt(8) + 4 for r0, r1, (_, E, _) in rx.runs]
+        torch.cuda.synchronize()
+        for name in layout.LAYOUT_LAUNCHES:
+            layout.LAYOUT_LAUNCHES[name] = 0
+        out, launched = count_launches(
+            results, lambda: rx.receive(tti % 2, llr, rv, new))
+        iters = int(out["iters"].max())
+        want = {"combine_kernel": len(rx.runs), siso: 2 * iters}
+        lay = dict(layout.LAYOUT_LAUNCHES)
+        for name, c in lay.items():
+            results[name]["launches"] = results[name].get("launches", 0) + c
+        per_tti.append({"tti": tti, "retx_share": float((~new).float().mean()),
+                        "max_iters": iters, "ok_share": float(
+                            out["ok"].float().mean()),
+                        "launches": {k_: v for k_, v in launched.items() if v},
+                        "layout_launches": lay})
+        if not only(launched, **want) or lay != {"pack_kernel": 1,
+                                                 "unpack_kernel": 1}:
+            raise AssertionError(f"the receiver at the cell's size, TTI "
+                                 f"{tti}: {want} and one launch of each "
+                                 f"layout kernel expected, counted "
+                                 f"{per_tti[-1]}")
+    cell_counts = rx.counts()
+    del rx, llr, out
+    torch.cuda.empty_cache()
+    stats = [{k: f[k] for k in ("function", "registers", "spill_stores",
+                                "spill_loads", "stack", "smem")}
+             for f in compiled_stats(harq.TARGET)]
+    first = shapes[-1]
+    results["combine_kernel"].update(
+        max_abs_err=0.0, ms=first["ms"], plain_ms=first["plain_ms"],
+        bound_ms=first["bound_ms"], bound_by="bytes")
+    emit("harq", card=card, shapes=shapes, receiver_equal=True,
+         counts=small_counts, cell_ttis=per_tti, cell_counts=cell_counts,
+         ptxas=stats)
 
 
 # C5 on the card: the reference's run_c5 defaults (K=6144, 4096 codewords,
@@ -1629,6 +1820,9 @@ def run_compact(dev, card, results):
             stage1_iters=3))
         rec["launches"] = {k: v for k, v in launched.items() if v}
         rec["card"] = card
+        # each batch combines its one transmission of each block: one
+        # launch a block (C6's two blocks differ in K)
+        combines = rec["tbs"] // C6_TB.n_tb * rec["C"] * len(rec["rvs"])
         # the contract: the same frames give the same counts
         if (rec["bit_errs"], rec["frame_errs"]) != (rec["bit_errs_single"],
                                                     rec["frame_errs_single"]):
@@ -1714,6 +1908,9 @@ def run_ber(dev, card, results):
             results, lambda: ber.simulate_point(cfg, ebn0, step))
         rec["launches"] = {k: v for k, v in launched.items() if v}
         rec["card"] = card
+        # each batch combines its one transmission of each block: one
+        # launch a block (C6's two blocks differ in K)
+        combines = rec["tbs"] // C6_TB.n_tb * rec["C"] * len(rec["rvs"])
         for key in ("frames", "bit_errs", "frame_errs", "ber", "fer",
                     "avg_iters", "wall_s", "mbit_per_s"):
             if not np.isfinite(rec[key]):
@@ -2451,6 +2648,7 @@ def main(argv) -> int:
         return 1
     from turbotpu_torch import _build
     from turbotpu_torch.decoder import layout
+    from turbotpu_torch import harq
     from turbotpu_torch.dist import dma
     from turbotpu_torch.experiments import cost_breakdown, gather_inkernel
     from turbotpu_torch.harness.bench import card_info
@@ -2484,7 +2682,7 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     targets = build_targets() + [gather_inkernel.TARGET,
                                  cost_breakdown.TARGET, dma.TARGET,
-                                 layout.TARGET]
+                                 layout.TARGET, harq.TARGET]
     libs = _build.build(targets)
     for name, defines in libs:
         _build.load(name, defines)
@@ -2536,6 +2734,12 @@ def main(argv) -> int:
             "source": "turbotpu_torch/csrc/layout.cu",
             "replaces": f"none: XLA fuses turbotpu/decoder/turbo_cells.py"
                         f"{what}", "library_ms": None}
+    results["combine_kernel"] = {
+        "name": "combine_kernel", "route": "cuda",
+        "source": "turbotpu_torch/csrc/harq.cu",
+        "replaces": "none: turbotpu/tx/rate_match_jax.py:95 "
+                    "de_rate_match_harq_jax sums whole transmissions, "
+                    "nothing kept", "library_ms": None}
     run = {"kernels": lambda: check_kernels(dev, results),
            "decode": lambda: check_decode(dev, results),
            "bench": lambda: run_bench(dev, card, results),
@@ -2545,6 +2749,7 @@ def main(argv) -> int:
            "fold": lambda: check_fold(dev, card, results),
            "calibrate": lambda: check_calibrate(dev, card, results),
            "tb": lambda: run_tb(dev, card, results),
+           "harq": lambda: check_harq(dev, card, results),
            "seq": lambda: check_seq(dev, card, results),
            "fp8": lambda: check_fp8(dev, card, results),
            "dist": lambda: check_dist(dev, card, results),

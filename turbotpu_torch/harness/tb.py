@@ -8,7 +8,9 @@ TBs (> 6144 info bits) get real BER/TBLER curves at device speed:
     payload -> CRC-24A -> segmentation (CRC-24B per block, filler bits in
     block 0) -> per-block turbo encode -> per-block rate matching to its
     E_r share of G (fillers never transmitted) -> BPSK/AWGN -> per-block
-    de-rate-matching -> ONE batched mixed-K decode of all C blocks of all
+    de-rate-matching, each transmission of the HARQ rv_sequence combined
+    into the decoder's streams by the HARQ receiver's combine (harq.py)
+    -> ONE batched mixed-K decode of all C blocks of all
     n_tb transport blocks via embedded permutation tables (K- and K+
     blocks in the same call, CRC-24B early termination) -> reassembly ->
     CRC-24A check -> error counters.
@@ -49,7 +51,7 @@ from ..spec.qpp import qpp_perm
 from ..spec.segmentation import segment_params
 from ..transport import per_block_e
 from ..tx import chain
-from ..tx.rate_match import de_rate_match, lte_demux, lte_mux, rate_match
+from ..tx.rate_match import lte_demux, lte_mux, rate_match
 from .ber import BIG_LLR, _device_name
 
 
@@ -186,28 +188,38 @@ def make_tb_step(cfg: TBConfig, device="cuda"):
         x = chain.modulate_bpsk(tx_bits.to(torch.int8))
         return chain.demap_bpsk(chain.awgn(gen, x, esn0_db), esn0_db)
 
+    if cfg.G:
+        # the HARQ receiver's combine: each transmission into the decoder's
+        # streams at its redundancy version, 0 + d_0 + d_1 + ... in order
+        from ..harq import combine, combine_table
+        rv_new = [(torch.full((1,), v, dtype=torch.int64, device=dev),
+                   torch.full((1,), i == 0, device=dev))
+                  for i, v in enumerate(rvs)]
+
     def gen_batch(gen, esn0_db):
         blocks, tb = encode(gen)
         parts = [[] for _ in range(5)]
         for r, ((_, d_flat), K) in enumerate(zip(blocks, seg.sizes)):
             F = seg.F if r == 0 else 0
             if cfg.G:
-                llr_d = torch.zeros_like(d_flat)
-                for v in rvs:
+                table, period = combine_table(K, Es[r], F, bucket, dev)
+                streams = tuple(torch.empty((n_tb, w), device=dev)
+                                for w in (bucket,) * 3 + (6, 6))
+                for v, (rv, new) in zip(rvs, rv_new):
                     tx_bits = rate_match(d_flat, Es[r], v, F=F)
-                    llr_d = llr_d + de_rate_match(
-                        channel(gen, tx_bits, esn0_db), K, v, F=F)
+                    combine(streams, channel(gen, tx_bits, esn0_db), table,
+                            period, rv, new)
             else:
-                llr_d = channel(gen, d_flat, esn0_db)
-            ls, lp1, lp2, t1, t2 = lte_demux(llr_d)
-            if F:
-                # Spec fillers are known zeros at the receiver.
-                ls = ls.clone()
-                ls[:, :F] = BIG_LLR
-            Fe = bucket - K                       # bucket embedding filler
-            for lst, x in zip(parts, (pad(ls, (Fe, 0), value=BIG_LLR),
-                                      pad(lp1, (Fe, 0)), pad(lp2, (Fe, 0)),
-                                      t1, t2)):
+                ls, lp1, lp2, t1, t2 = lte_demux(
+                    channel(gen, d_flat, esn0_db))
+                if F:
+                    # Spec fillers are known zeros at the receiver.
+                    ls = ls.clone()
+                    ls[:, :F] = BIG_LLR
+                Fe = bucket - K                   # bucket embedding filler
+                streams = (pad(ls, (Fe, 0), value=BIG_LLR), pad(lp1, (Fe, 0)),
+                           pad(lp2, (Fe, 0)), t1, t2)
+            for lst, x in zip(parts, streams):
                 lst.append(x)
         return tuple(torch.cat(xs, dim=0) for xs in parts), tb
 

@@ -12,6 +12,8 @@ positions repeat with the period of one wrap of the circular buffer, so the
 received LLRs are padded to whole wraps, the wraps are summed one after the
 other (the order in which a sequential scatter-add meets them), and the
 result is written once to the first wrap's positions, which are distinct.
+`inverse_map` is the same selection read the other way, per position, for
+the HARQ receiver's combine (harq.py), which gathers instead of scattering.
 """
 
 from __future__ import annotations
@@ -81,6 +83,20 @@ def _sel_idx(K: int, E: int, rv: int, n_cb, F: int,
     idx = select_indices(K, E, rv, n_cb, F)
     return (torch.from_numpy(idx.astype(np.int64)).to(device),
             len(np.unique(idx)))
+
+
+@functools.lru_cache(maxsize=None)
+def inverse_map(K: int, E: int, rv: int, F: int,
+                device: torch.device) -> tuple[torch.Tensor, int]:
+    """(for each of the 3D flat-d positions, the index among the first
+    wrap's E selected bits of the one that lands on it, or -1 where none
+    does (punctured, dummy, filler), int64 on `device`; the selection's
+    period, as `_sel_idx` gives it), N_cb = K_w.  The bits of later wraps
+    land on the same positions, at that index plus whole periods."""
+    idx, period = _sel_idx(K, E, rv, None, F, torch.device("cpu"))
+    inv = torch.full((3 * (K + 4),), -1, dtype=torch.int64)
+    inv[idx[:period]] = torch.arange(period)
+    return inv.to(device), period
 
 
 def rate_match(d_flat: torch.Tensor, E: int, rv: int = 0,
