@@ -21,7 +21,10 @@ and drives the port's entry points:
   with one launch of each layout kernel of layout.cu, which are held byte
   for byte against their plain versions and timed against them at the
   chained benchmark cells' shapes (B=16384, K=6144 with the shared table;
-  B=6656, K=5824 with per-codeword tables; phase `decode`),
+  B=6656, K=5824 with per-codeword tables; phase `decode`), and in a crc
+  decode the two kernels of the CRC early exit once an iteration (also at
+  the transport-block cells' size), held byte for byte against the plain
+  chain and timed against it at those cells' shape (phase `decode`),
   and the same decode with `fold_gather=True`, which must give the same bits,
   iteration counts and L through the folded kernel alone (phase `fold`, with
   the row-gather experiment, timed back to back and as a CUDA graph against
@@ -697,6 +700,110 @@ def check_layout(dev, results, shapes=LAYOUT_SHAPES):
     return out
 
 
+def exit_bytes(B, K, KTp, chan_bytes, ext_bytes, n_done):
+    """Least bytes one call of the CRC early exit must move: rows [0, K) of
+    ls1, le1 and le21 read for each live codeword, both carries read and
+    written on all KTp rows for each codeword done before, the check masks
+    read, done, iters and the syndrome read and written."""
+    live = B - n_done
+    return (live * K * (chan_bytes + 2 * ext_bytes)
+            + n_done * KTp * 4 * ext_bytes + K * 4 + 2 * B * (1 + 4 + 4))
+
+
+# both transport-block cells decode 512 TBs of 13 blocks of K=5824 a batch
+# (B=6656, KTp=5888 at W=256, bf16 channel, int8 extrinsics, CRC-24B); the
+# shares of codewords done before an iteration at which the exit is timed
+EXIT_SHAPE = (6656, 5824, 5888)
+EXIT_DONE = (0.0, 0.5, 0.9)
+
+
+def check_exit(dev, results, shape=EXIT_SHAPE, shares=EXIT_DONE):
+    """The CRC early exit of csrc/layout.cu (`exit_kernel`, then
+    `exit_close_kernel`) at the transport-block cells' shape, as the main
+    path calls it: for each share of codewords done before the call, the
+    wrapper's carries, done, iters and flag against the plain version's on
+    the same card tensors, byte for byte, both with the natural carry (one
+    tensor as le21_nat and le21_new) and the folded one; each timed against
+    the plain chain over 20 calls between CUDA events (and its two launches
+    without the wrapper's checks), beside its byte bound at
+    PEAK_BYTES_PER_S.  Returns the record of each share; `results` takes
+    the first (every codeword live: the first iteration)."""
+    from turbotpu_torch.decoder import layout
+    from turbotpu_torch.harness.profiling import compiled_stats
+    from turbotpu_torch.spec.crc import CRC24B_POLY
+
+    B, K, KTp = shape
+    dt, ext, deq, poly = torch.bfloat16, torch.int8, 0.75 * 0.25, CRC24B_POLY
+    g = torch.Generator(device=dev).manual_seed(B + K)
+    ls1 = (torch.randn((KTp, B), generator=g, device=dev) * 8).to(dt)
+    le1, le21, le1n, le2 = (torch.randint(-127, 128, (KTp, B), generator=g,
+                                          device=dev, dtype=ext)
+                            for _ in range(4))
+    # a third of the codewords have the all-zero word's L (which passes)
+    ls1[:, ::3] = 1.0
+    le1n[:, ::3] = 0
+    le2[:, ::3] = 0
+    le2_nat = le2.flip(0)               # a de-interleave, for the fold case
+    scratch = layout.crc_exit_scratch(B, dev)
+    out = []
+    for share in shares:
+        done = torch.rand((B,), generator=g, device=dev) < share
+        iters = torch.randint(0, 6, (B,), generator=g, device=dev,
+                              dtype=torch.int32)
+        for carry in ("natural", "fold"):
+            nat = le2 if carry == "natural" else le2_nat
+            want = layout.crc_exit_plain(ls1, le1, le21, le1n, nat, le2,
+                                         done, iters, K, deq, ext, poly)
+            a1, a2, d, it = (x.clone() for x in (le1n, le2, done, iters))
+            got = layout.crc_exit(ls1, le1, le21, a1,
+                                  a2 if carry == "natural" else nat, a2, d,
+                                  it, K, deq, ext, poly, scratch)
+            if not all(same(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"crc_exit differs from its plain "
+                                     f"version at {share:.0%} done "
+                                     f"({carry} carry)")
+            if bool(scratch[0].any()):
+                raise AssertionError("crc_exit left its syndrome non-zero")
+        # the state after the call, in place on the card; random bits fail
+        # the CRC, so repeated calls keep it
+        a1, a2, d, it = got[:4]
+        n_done = int(d.sum())
+        rec = {"B": B, "K": K, "KTp": KTp, "chan": "bfloat16", "ext": "int8",
+               "done_share": share, "done": n_done,
+               "passed_now": n_done - int(done.sum()), "equal": True,
+               "ms": time_launches(lambda: layout.crc_exit(
+                   ls1, le1, le21, a1, a2, a2, d, it, K, deq, ext, poly,
+                   scratch), 20),
+               "launch_ms": time_launches(lambda: layout._exit_launch(
+                   ls1, le1, le21, a1, a2, a2, d, it,
+                   layout._masks_on(K, poly, dev), *scratch, K, deq, ext),
+                   20),
+               "plain_ms": time_launches(lambda: layout.crc_exit_plain(
+                   ls1, le1, le21, le1n, le2, le2, done, iters, K, deq, ext,
+                   poly), 20),
+               "bound_ms": exit_bytes(B, K, KTp, dt.itemsize, ext.itemsize,
+                                      n_done) / PEAK_BYTES_PER_S * 1e3}
+        out.append(rec)
+    del ls1, le1, le21, le1n, le2, le2_nat, a1, a2, want, got
+    torch.cuda.empty_cache()
+    stats = [{k: f[k] for k in ("function", "registers", "spill_stores",
+                                "spill_loads", "stack", "smem")}
+             for f in compiled_stats(layout.TARGET)
+             if "exit" in f["function"]]
+    first = out[0]
+    shape_rec = {k: first[k] for k in ("B", "K", "KTp", "chan", "ext")}
+    results["exit_kernel"].update(
+        max_abs_err=0.0, ms=first["ms"], plain_ms=first["plain_ms"],
+        bound_ms=first["bound_ms"], bound_by="bytes", shape=shape_rec,
+        at_done_share={r["done_share"]: {k: r[k] for k in (
+            "ms", "launch_ms", "plain_ms", "bound_ms")} for r in out},
+        ptxas=stats)
+    results["exit_close_kernel"].update(
+        max_abs_err=0.0, ms=None, plain_ms=None, bound_ms=None,
+        bound_by="bytes", shape=shape_rec)
+    return out
+
+
 def check_decode(dev, results):
     """Phase `decode`: the main path, with launch counts, and the layout
     kernels at the chained cells' shapes (`check_layout`)."""
@@ -711,19 +818,33 @@ def check_decode(dev, results):
     bits = torch.from_numpy(bits).to(dev)
     rec = {"K": K, "B": B, "ebn0_db": ebn0}
 
-    for name in layout.LAYOUT_LAUNCHES:
-        layout.LAYOUT_LAUNCHES[name] = 0
-    (hard, iters, L), launched = count_launches(
-        results, lambda: turbo_decode(*inputs, flagship_config()))
+    def layout_count(fn):
+        """fn's result and its launches of layout.cu's kernels, added to
+        the main path's totals."""
+        for name in layout.LAYOUT_LAUNCHES:
+            layout.LAYOUT_LAUNCHES[name] = 0
+        out = fn()
+        lay = dict(layout.LAYOUT_LAUNCHES)
+        for name, n in lay.items():
+            results[name]["launches"] = results[name].get("launches", 0) + n
+        return out, lay
+
+    def layout_expected(n_exit):
+        """One launch of each layout crossing, the exit's two kernels once
+        an iteration run."""
+        return {"pack_kernel": 1, "unpack_kernel": 1, "exit_kernel": n_exit,
+                "exit_close_kernel": n_exit}
+
+    ((hard, iters, L), launched), rec["layout_launches"] = layout_count(
+        lambda: count_launches(
+            results, lambda: turbo_decode(*inputs, flagship_config())))
     if not only(launched, siso_nii=12):
         raise AssertionError(f"lean decode: 12 siso_nii launches expected, "
                              f"counted {launched}")
-    rec["layout_launches"] = dict(layout.LAYOUT_LAUNCHES)
-    if rec["layout_launches"] != {"pack_kernel": 1, "unpack_kernel": 1}:
-        raise AssertionError(f"lean decode: one launch of each layout kernel "
-                             f"expected, counted {rec['layout_launches']}")
-    for name, n in rec["layout_launches"].items():
-        results[name]["launches"] = results[name].get("launches", 0) + n
+    if rec["layout_launches"] != layout_expected(0):
+        raise AssertionError(f"lean decode: one launch of each layout "
+                             f"crossing and no exit expected, counted "
+                             f"{rec['layout_launches']}")
     if hard.shape != (B, K) or L.shape != (B, K) or iters.shape != (B,):
         raise AssertionError("decode outputs have the wrong shape")
     if not bool(torch.isfinite(L).all()):
@@ -731,12 +852,16 @@ def check_decode(dev, results):
     rec["lean_bit_errors"] = int((hard != bits).sum())
     rec["lean_iters"] = int(iters.max())
 
-    (hard_c, iters_c, _), launched_c = count_launches(
-        results,
-        lambda: turbo_decode(*inputs, flagship_config(early_term="crc")))
+    ((hard_c, iters_c, _), launched_c), lay_c = layout_count(
+        lambda: count_launches(results, lambda: turbo_decode(
+            *inputs, flagship_config(early_term="crc"))))
     rec["crc_bit_errors"] = int((hard_c != bits).sum())
     rec["crc_max_iters"] = int(iters_c.max())
     rec["crc_mean_iters"] = float(iters_c.float().mean())
+    rec["crc_layout_launches"] = lay_c
+    if lay_c != layout_expected(rec["crc_max_iters"]):
+        raise AssertionError(f"crc decode: the exit's two kernels once an "
+                             f"iteration expected, counted {lay_c}")
 
     (hard_x, _, _), launched_x = count_launches(
         results, lambda: turbo_decode(*inputs, flagship_config(nii=False)))
@@ -757,7 +882,28 @@ def check_decode(dev, results):
         flagship_config(K=168, window=32, early_term="crc", nii=False))
     del inputs, bits, hard, iters, L, hard_c, iters_c, hard_x
     torch.cuda.empty_cache()
+
+    # a crc decode at the transport-block cells' size: the exit's two
+    # kernels once an iteration run, and nothing of the PyTorch chain
+    B3, K3 = EXIT_SHAPE[:2]
+    inputs3 = tuple(x.to(dev) for x in make_decode_inputs(
+        K3, B3, seed=5, ebn0_db=1.0, with_crc=True))
+    ((_, iters3, _), launched3), lay3 = layout_count(
+        lambda: count_launches(results, lambda: turbo_decode(
+            *inputs3, flagship_config(K=K3, early_term="crc"))))
+    n3 = int(iters3.max())
+    rec["cell_size_crc"] = {"K": K3, "B": B3, "max_iters": n3,
+                            "mean_iters": float(iters3.float().mean()),
+                            "launches": {k: v for k, v in launched3.items()
+                                         if v},
+                            "layout_launches": lay3}
+    if not only(launched3, siso_nii=2 * n3) or lay3 != layout_expected(n3):
+        raise AssertionError(f"crc decode at the cells' size: "
+                             f"{rec['cell_size_crc']}")
+    del inputs3, iters3
+    torch.cuda.empty_cache()
     rec["layout"] = check_layout(dev, results)
+    rec["exit"] = check_exit(dev, results)
     emit("decode", **rec)
 
 
@@ -1266,11 +1412,13 @@ def check_harq(dev, card, results):
                             out["ok"].float().mean()),
                         "launches": {k_: v for k_, v in launched.items() if v},
                         "layout_launches": lay})
-        if not only(launched, **want) or lay != {"pack_kernel": 1,
-                                                 "unpack_kernel": 1}:
+        if not only(launched, **want) or lay != {
+                "pack_kernel": 1, "unpack_kernel": 1, "exit_kernel": iters,
+                "exit_close_kernel": iters}:
             raise AssertionError(f"the receiver at the cell's size, TTI "
-                                 f"{tti}: {want} and one launch of each "
-                                 f"layout kernel expected, counted "
+                                 f"{tti}: {want}, one launch of each layout "
+                                 f"crossing and the exit's two kernels an "
+                                 f"iteration expected, counted "
                                  f"{per_tti[-1]}")
     cell_counts = rx.counts()
     del rx, llr, out
@@ -2734,6 +2882,13 @@ def main(argv) -> int:
             "source": "turbotpu_torch/csrc/layout.cu",
             "replaces": f"none: XLA fuses turbotpu/decoder/turbo_cells.py"
                         f"{what}", "library_ms": None}
+    for name in ("exit_kernel", "exit_close_kernel"):
+        results[name] = {
+            "name": name, "route": "cuda",
+            "source": "turbotpu_torch/csrc/layout.cu",
+            "replaces": "none: XLA fuses turbotpu/decoder/turbo_cells.py"
+                        ":251-267 (the dot_general syndrome and the "
+                        "freezes)", "library_ms": None}
     results["combine_kernel"] = {
         "name": "combine_kernel", "route": "cuda",
         "source": "turbotpu_torch/csrc/harq.cu",

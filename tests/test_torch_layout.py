@@ -265,16 +265,19 @@ def test_assemble_kernel_matches_plain_on_card(B, K, W, fold, ext, chan):
     dict(io_dtype="bfloat16", ext_dtype="bfloat16", interleaver="umts"),
 ])
 def test_decode_runs_both_kernels_and_matches_cpu(cfg_kw):
-    """A decode on the card launches each kernel once and gives the CPU's
-    bits, iteration counts and L."""
+    """A decode on the card launches each kernel once (and the CRC early
+    exit's two once an iteration in `crc` mode) and gives the CPU's bits,
+    iteration counts and L."""
     _card()
     K, B = 168, 33
     inputs = make_decode_inputs(K, B, seed=4, ebn0_db=1.0, with_crc=True)
     cfg = DecoderConfig(K=K, n_iters=4, mode="maxlog", siso="cuda", **cfg_kw)
     before = dict(layout.LAYOUT_LAUNCHES)
     got = turbo_decode(*inputs, cfg)
+    n_exit = int(got[1].max()) if cfg.early_term == "crc" else 0
     assert {k: layout.LAYOUT_LAUNCHES[k] - before[k] for k in before} == {
-        "pack_kernel": 1, "unpack_kernel": 1}
+        "pack_kernel": 1, "unpack_kernel": 1, "exit_kernel": n_exit,
+        "exit_close_kernel": n_exit}
     want = turbo_decode(*inputs, cfg, device="cpu")
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)

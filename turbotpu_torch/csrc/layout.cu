@@ -1,7 +1,8 @@
 // The decoder's two layout crossings for Hopper (sm_90a), one launch each:
 // the public (B, K) codeword-major tensors into the kernels' time-major
 // (KTp, B) streams before the loop, and the loop's time-major extrinsics
-// back into the (B, K) LLR and hard bits after it.
+// back into the (B, K) LLR and hard bits after it; and the CRC early exit
+// that runs between them once an iteration (exit_kernel, below).
 //
 // Replaces no TPU kernel.  The JAX package leaves both crossings to XLA
 // (turbotpu/decoder/turbo_cells.py:120 `stream`: concatenate, pad, astype
@@ -43,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -278,6 +281,274 @@ cudaError_t unpack_ext(int ext, UnpackArgs a, cudaStream_t st) {
   return cudaErrorInvalidValue;
 }
 
+// ---- CRC early exit -------------------------------------------------------
+// One iteration's verdicts and freezes of the `crc` loop, in the time-major
+// layout, in place of the PyTorch chain of `crc_exit_plain`
+// (decoder/layout.py): L and its sign, a (B, K) @ (K, 24) fp32 matmul for
+// the syndrome, two torch.where freezes, some twenty launches and 2.6 GB an
+// iteration at B=6656, K=5824.
+//
+// Replaces no TPU kernel.  The JAX loop's syndrome (`dot_general`) and
+// freezes (turbotpu/decoder/turbo_cells.py:251-267) are fused by XLA.
+//
+//   exit_kernel:       for each codeword not done before this iteration,
+//                      hard = (ls + deq * (le1n + le21n) < 0) on rows
+//                      [0, K), L in fp32 in unpack_kernel's order, and the
+//                      syndrome as the XOR of the 24-bit check mask of every
+//                      row whose hard bit is 1 (the CRC is linear over
+//                      GF(2), so XOR is exact and order-free: the result
+//                      equals (hard @ H) mod 2 whatever the blocks' order);
+//                      for each codeword done before, the carried le1 and
+//                      le21 written over its new buffers on all KTp rows.
+//                      A block takes 128 codewords (4 a thread, the warp's
+//                      lanes along B) and a chunk of rows (its 8 warps take
+//                      every 8th); its partial syndromes meet in shared
+//                      memory and reach the (B,) syndrome by atomicXor.
+//   exit_close_kernel: one block over B: iters += !done, done |= (synd ==
+//                      0), synd = 0 for the next iteration, and done.all()
+//                      into the flag that the loop copies to the host.
+//
+// Bound: bytes.  A live codeword reads 4 bytes a row at bf16 + int8 (K rows
+// of the channel and both extrinsics), a frozen one reads and writes 2 a row
+// on KTp rows: at B=6656, K=5824 about 155 MB an iteration, 0.046 ms at
+// 3.35 TB/s.  What the design does about it: each element is read once, in
+// 4-codeword vectors (8 + 4 + 4 bytes at bf16 + int8) that a warp's lanes
+// lay side by side along B, with the loads of four rows in flight a thread
+// before any is used; a vector of codewords all live skips the freeze, one
+// all done skips the LLR, and one that mixes them (the dearest case: it
+// reads both and merges the freeze in registers, one store a stream) still
+// writes whole vectors; no (K, B) temporary is written.  The grid adapts to
+// the shape it is given: blocks of 128 codewords across B, and enough
+// chunks of rows (at least 32 a chunk) for EXIT_BLOCKS_PER_SM blocks an SM,
+// so B=13 and B=6656 both spread over every SM.
+constexpr int EXIT_V = 4;                       // codewords a thread
+constexpr int EXIT_COLS = 32 * EXIT_V;          // codewords a block
+constexpr int EXIT_WARPS = THREADS / 32;
+constexpr int EXIT_MIN_ROWS = 32;               // rows a chunk, at least
+constexpr int EXIT_ROWS = 4;                    // rows in flight a thread
+// Blocks an SM the grid aims at, more than stay resident: the SMs take the
+// chunks as they free up, which evens out cheap blocks (every codeword done,
+// or every one live) beside mixed ones.  On an H100 80GB HBM3 at B=6656,
+// K=5824 with half the codewords done, one wave sized by the occupancy API
+// took 0.17 ms a call, this grid 0.14.
+constexpr int EXIT_BLOCKS_PER_SM = 8;
+constexpr int CLOSE_THREADS = 1024;
+
+struct ExitArgs {
+  const void* ls;            // (KTp, B) channel stream
+  void* le1n;                // (KTp, B) this iteration's le1 (frozen here)
+  const void* le21n;         // (KTp, B) this iteration's le21, natural order
+  const void* le1;           // (KTp, B) the carry before this iteration
+  const void* le21;
+  void* f21;                 // (KTp, B) le21's new buffer, frozen here
+  const uint8_t* done;       // (B,) bool, before this iteration
+  const uint32_t* masks;     // (K,) the check bits of row t
+  uint32_t* synd;            // (B,) 0 on entry
+  int B, K, KTp;
+  int rows;                  // rows a block's chunk
+  float deq;
+  bool vec;                  // 4-codeword vector access
+};
+
+// Rows t, t + EXIT_WARPS, ... (R of them) of codewords b .. b + EXIT_V - 1:
+// the sign of L XORed into the syndromes of the live ones, every load of
+// the R rows issued before the first use.
+template <int R, typename Chan, typename Ext>
+__device__ __forceinline__ void llr_rows(const ExitArgs& a, int t, int b,
+                                         bool full,
+                                         const bool (&live)[EXIT_V],
+                                         uint32_t (&s)[EXIT_V]) {
+  const Chan* __restrict__ ls = (const Chan*)a.ls;
+  const Ext* e1n = (const Ext*)a.le1n;
+  const Ext* e21n = (const Ext*)a.le21n;
+  Chan x[R][EXIT_V];
+  Ext y[R][EXIT_V], z[R][EXIT_V];
+  uint32_t m[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int tr = t + r * EXIT_WARPS;
+    const int64_t o = (int64_t)tr * a.B + b;
+    if (full) {
+      load_vec(x[r], ls + o);
+      load_vec(y[r], e1n + o);
+      load_vec(z[r], e21n + o);
+    } else {      // past B, lane i repeats codeword b (never counted)
+#pragma unroll
+      for (int i = 0; i < EXIT_V; ++i) {
+        const int64_t j = o + (b + i < a.B ? i : 0);
+        x[r][i] = ls[j], y[r][i] = e1n[j], z[r][i] = e21n[j];
+      }
+    }
+    m[r] = a.masks[tr];
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int i = 0; i < EXIT_V; ++i) {
+      const float L = __fadd_rn(
+          to_f(x[r][i]),
+          __fmul_rn(a.deq, __fadd_rn(to_f(y[r][i]), to_f(z[r][i]))));
+      if (live[i] && L < 0.f) s[i] ^= m[r];
+    }
+}
+
+// The same rows' freeze: the carried le1 and le21 written over the new
+// buffers on the codewords done before.  A vector of codewords that mixes
+// done and live ones is merged in registers and stored whole (a live
+// codeword gets its own bytes back).
+template <int R, typename Ext>
+__device__ __forceinline__ void freeze_rows(const ExitArgs& a, int t, int b,
+                                            bool full, bool all_frozen,
+                                            const bool (&frozen)[EXIT_V]) {
+  const Ext* __restrict__ e1 = (const Ext*)a.le1;
+  const Ext* __restrict__ e21 = (const Ext*)a.le21;
+  Ext* f1 = (Ext*)a.le1n;
+  Ext* f21 = (Ext*)a.f21;
+  if (!full) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int64_t o = (int64_t)(t + r * EXIT_WARPS) * a.B + b;
+#pragma unroll
+      for (int i = 0; i < EXIT_V; ++i)
+        if (frozen[i]) f1[o + i] = e1[o + i], f21[o + i] = e21[o + i];
+    }
+    return;
+  }
+  Ext v1[R][EXIT_V], v21[R][EXIT_V], n1[R][EXIT_V], n21[R][EXIT_V];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int64_t o = (int64_t)(t + r * EXIT_WARPS) * a.B + b;
+    load_vec(v1[r], e1 + o);
+    load_vec(v21[r], e21 + o);
+    if (!all_frozen) {
+      load_vec(n1[r], f1 + o);
+      load_vec(n21[r], f21 + o);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int64_t o = (int64_t)(t + r * EXIT_WARPS) * a.B + b;
+    if (!all_frozen) {
+#pragma unroll
+      for (int i = 0; i < EXIT_V; ++i)
+        if (!frozen[i]) v1[r][i] = n1[r][i], v21[r][i] = n21[r][i];
+    }
+    store_vec(f1 + o, v1[r]);
+    store_vec(f21 + o, v21[r]);
+  }
+}
+
+template <typename Chan, typename Ext>
+__global__ void __launch_bounds__(THREADS) exit_kernel(ExitArgs a) {
+  __shared__ uint32_t part[EXIT_WARPS][EXIT_COLS];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int c0 = blockIdx.x * EXIT_COLS;
+  const int b = c0 + EXIT_V * lane;
+  const int r0 = blockIdx.y * a.rows;
+  const int r1 = min(r0 + a.rows, a.KTp);
+  const bool full = a.vec && b + EXIT_V <= a.B;
+  // In place: le21n may be f21 (the carry in natural order).  A thread
+  // reads and writes only its own codewords, and reads a row's le21n
+  // before it writes the row.
+  bool live[EXIT_V], frozen[EXIT_V];
+  uint32_t s[EXIT_V];
+  bool any_live = false, any_frozen = false, all_frozen = true;
+#pragma unroll
+  for (int i = 0; i < EXIT_V; ++i) {
+    const bool in = b + i < a.B;
+    const bool d = in && a.done[b + i];
+    live[i] = in && !d, frozen[i] = d, s[i] = 0;
+    any_live |= live[i], any_frozen |= d, all_frozen &= d;
+  }
+  constexpr int STEP = EXIT_ROWS * EXIT_WARPS;
+  if (any_live) {
+    const int end = min(r1, a.K);
+    int t = r0 + warp;
+    for (; t + STEP - EXIT_WARPS < end; t += STEP)
+      llr_rows<EXIT_ROWS, Chan, Ext>(a, t, b, full, live, s);
+    for (; t < end; t += EXIT_WARPS)
+      llr_rows<1, Chan, Ext>(a, t, b, full, live, s);
+  }
+  if (any_frozen) {
+    int t = r0 + warp;
+    for (; t + STEP - EXIT_WARPS < r1; t += STEP)
+      freeze_rows<EXIT_ROWS, Ext>(a, t, b, full, all_frozen, frozen);
+    for (; t < r1; t += EXIT_WARPS)
+      freeze_rows<1, Ext>(a, t, b, full, all_frozen, frozen);
+  }
+#pragma unroll
+  for (int i = 0; i < EXIT_V; ++i) part[warp][EXIT_V * lane + i] = s[i];
+  __syncthreads();
+  if (threadIdx.x < EXIT_COLS) {
+    uint32_t x = 0;
+#pragma unroll
+    for (int w = 0; w < EXIT_WARPS; ++w) x ^= part[w][threadIdx.x];
+    if (x != 0) atomicXor(a.synd + c0 + threadIdx.x, x);   // only live
+  }
+}
+
+__global__ void __launch_bounds__(CLOSE_THREADS) exit_close_kernel(
+    uint8_t* done, int32_t* iters, uint32_t* synd, uint8_t* all_done,
+    int B) {
+  int all = 1;
+  for (int b = threadIdx.x; b < B; b += CLOSE_THREADS) {
+    const bool d = done[b];
+    const bool now = d || synd[b] == 0;
+    if (!d) iters[b] += 1;
+    done[b] = now;
+    synd[b] = 0;
+    all &= now;
+  }
+  all = __syncthreads_and(all);
+  if (threadIdx.x == 0) *all_done = all != 0;
+}
+
+template <typename Chan, typename Ext>
+cudaError_t launch_exit(ExitArgs a, uint8_t* done, int32_t* iters,
+                        uint8_t* all_done, cudaStream_t st) {
+  a.vec = a.B % EXIT_V == 0 && aligned(a.ls, EXIT_V * sizeof(Chan)) &&
+          aligned(a.done, EXIT_V);
+  for (const void* p : {(const void*)a.le1n, a.le21n, a.le1, a.le21,
+                        (const void*)a.f21})
+    a.vec = a.vec && aligned(p, EXIT_V * sizeof(Ext));
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  // chunks of rows: EXIT_BLOCKS_PER_SM blocks an SM, no chunk under
+  // EXIT_MIN_ROWS rows, rows a multiple of the warps
+  const int64_t cols = (a.B + EXIT_COLS - 1) / EXIT_COLS;
+  int64_t chunks = (EXIT_BLOCKS_PER_SM * (int64_t)sms + cols - 1) / cols;
+  chunks = std::min(chunks, (int64_t)(a.KTp + EXIT_MIN_ROWS - 1) /
+                                EXIT_MIN_ROWS);
+  chunks = std::max<int64_t>(1, std::min<int64_t>(chunks, 65535));
+  int64_t rows = (a.KTp + chunks - 1) / chunks;
+  rows = (rows + EXIT_WARPS - 1) / EXIT_WARPS * EXIT_WARPS;
+  a.rows = (int)rows;
+  const dim3 grid((unsigned)cols, (unsigned)((a.KTp + rows - 1) / rows));
+  exit_kernel<Chan, Ext><<<grid, THREADS, 0, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  exit_close_kernel<<<1, CLOSE_THREADS, 0, st>>>(done, iters, a.synd,
+                                                 all_done, a.B);
+  return cudaGetLastError();
+}
+
+template <typename Chan>
+cudaError_t exit_ext(int ext, ExitArgs a, uint8_t* done, int32_t* iters,
+                     uint8_t* all_done, cudaStream_t st) {
+  switch (ext) {
+    case 0: return launch_exit<Chan, float>(a, done, iters, all_done, st);
+    case 1:
+      return launch_exit<Chan, __nv_bfloat16>(a, done, iters, all_done, st);
+    case 2: return launch_exit<Chan, int8_t>(a, done, iters, all_done, st);
+    case 3:
+      return launch_exit<Chan, __nv_fp8_e4m3>(a, done, iters, all_done, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
 // offsets are int64; indices along one axis, int; the grid's y (tiles of
 // 64 codewords) holds at most 65535
 bool shape_ok(int64_t B, int64_t K, int64_t KTp) {
@@ -347,6 +618,49 @@ extern "C" int turbotpu_assemble_outputs_launch(const int64_t* a) {
   switch (a[8]) {
     case 0: return (int)unpack_ext<float>((int)a[9], u, st);
     case 1: return (int)unpack_ext<__nv_bfloat16>((int)a[9], u, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// CRC early exit, 18 arguments: a[0] ls1 (KTp, B) of the channel type;
+// a[1] le1n, this iteration's le1, a[2] le21n, its le21 in natural order
+// (the same tensor as a[5] unless the loop carries le2 raw), a[3], a[4] the
+// carried le1 and le21, a[5] le21's new buffer: (KTp, B) of the extrinsic
+// type; a[6] done (B,) bool; a[7] iters (B,) int32; a[8] the check masks
+// (K,) int32, bit j of row t set where the CRC's check matrix has a 1;
+// a[9] the syndrome scratch (B,) int32, zero, and left zero; a[10] the
+// all-done flag, a bool; a[11] B, a[12] K, a[13] KTp; a[14] the bits of deq
+// as a double (rounded to fp32 as for unpack); a[15] the channel type,
+// a[16] the extrinsic type; a[17] the cudaStream_t.  Two launches:
+// exit_kernel, then exit_close_kernel.  a[1] and a[5] are written in place
+// on the columns of codewords done before the call; done, iters and the
+// flag after it.
+extern "C" int turbotpu_crc_exit_launch(const int64_t* a) {
+  const int64_t B = a[11], K = a[12], KTp = a[13];
+  if (!shape_ok(B, K, KTp)) return (int)cudaErrorInvalidValue;
+  double deq;
+  memcpy(&deq, &a[14], sizeof deq);
+  ExitArgs e;
+  e.ls = (const void*)a[0];
+  e.le1n = (void*)a[1];
+  e.le21n = (const void*)a[2];
+  e.le1 = (const void*)a[3];
+  e.le21 = (const void*)a[4];
+  e.f21 = (void*)a[5];
+  e.done = (const uint8_t*)a[6];
+  e.masks = (const uint32_t*)a[8];
+  e.synd = (uint32_t*)a[9];
+  e.B = (int)B, e.K = (int)K, e.KTp = (int)KTp;
+  e.deq = (float)deq;
+  uint8_t* done = (uint8_t*)a[6];
+  int32_t* iters = (int32_t*)a[7];
+  uint8_t* all_done = (uint8_t*)a[10];
+  cudaStream_t st = (cudaStream_t)a[17];
+  switch (a[15]) {
+    case 0: return (int)exit_ext<float>((int)a[16], e, done, iters, all_done,
+                                        st);
+    case 1: return (int)exit_ext<__nv_bfloat16>((int)a[16], e, done, iters,
+                                                all_done, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -6,7 +6,8 @@ a transpose, and the kernel forms the branch metrics itself: the only
 per-iteration work outside it is the extrinsic interleave gather
 (`index_select` along time, or for a mixed-K batch one `torch.gather` along
 time through a per-codeword `(KTp, B)` index) and the early-termination
-bookkeeping.  Channel-LLR packing and the output assembly cross layouts
+bookkeeping (under `crc` one pass, two launches on the card: layout.py's
+`crc_exit`).  Channel-LLR packing and the output assembly cross layouts
 once each, one kernel launch each on the card (layout.py), inside the
 ranges `turbo.pack` and `turbo.unpack`.
 
@@ -33,8 +34,8 @@ from torch.profiler import record_function
 
 from ..siso.cuda_kernel import (FP8, _round_up, launch_count,
                                 siso_cells, window_len)
-from .early_term import _crc_check_matrix_np
-from .layout import assemble_outputs, full_llr, pack_streams
+from .layout import (assemble_outputs, crc_exit, crc_exit_scratch, full_llr,
+                     pack_streams)
 from .turbo import DecoderConfig
 
 _STREAM_TYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -194,20 +195,16 @@ def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
         return outputs(le21, le1, torch.full((B,), cfg.n_iters,
                                              dtype=torch.int32, device=dev))
 
-    if cfg.early_term == "crc":
-        if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-            raise RuntimeError(
-                "the CRC syndrome needs an exact fp32 matmul: "
-                "torch.backends.cuda.matmul.allow_tf32 must be False")
-        # fp32 operands: sums of 0/1 up to K are exact, with TF32 off.
-        G = torch.from_numpy(_crc_check_matrix_np(K, cfg.crc_poly)).to(dev)
-
     # Early-termination freezing works on the EXTRINSICS, not on stored
     # L/hard copies: L = ls + deq*(le1 + le21) is a pure function of the
     # extrinsic streams, so pinning a converged frame's le1/le21 yields the
     # bit-identical at-convergence L and hard bits when computed once after
     # the loop.  Sign-agreement mode also carries last iteration's hard bits;
-    # CRC mode does not (the syndrome is memoryless).
+    # CRC mode does not (the syndrome is memoryless), and its verdicts and
+    # freezes are one pass (layout.crc_exit: two launches on the card,
+    # which write the iteration's new buffers in place).
+    crc = cfg.early_term == "crc"
+    scratch = crc_exit_scratch(B, dev) if crc else None
     le21, le1, ck1, ck2 = zT, zT, zC, zC
     hard_prev = torch.zeros((K, B), dtype=torch.int8, device=dev) \
         if cfg.early_term == "sign" else None
@@ -231,27 +228,26 @@ def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
             # Under fold the carry holds raw le2; the convergence check needs
             # natural order, so ONE gather per iteration remains (vs two).
             le21_nat = g_inv(le21_new) if fold else le21_new
-            hard_new = (full_llr(ls1, le1_new, le21_nat, K, deq, dte) < 0)
-
-            if cfg.early_term == "crc":
-                synd = hard_new.T.to(f32) @ G                    # (B, 24)
-                newly_done = (synd % 2.0 == 0.0).all(dim=1)
+            if crc:
+                le1, le21, done, iters, all_done = crc_exit(
+                    ls1, le1, le21, le1_new, le21_nat, le21_new, done, iters,
+                    K, deq, dte, cfg.crc_poly, scratch)
             else:  # sign agreement
-                hard_new = hard_new.to(torch.int8)
+                hard_new = (full_llr(ls1, le1_new, le21_nat, K, deq, dte)
+                            < 0).to(torch.int8)
                 newly_done = (hard_new == hard_prev).all(dim=0)
-
-            # Freeze converged codewords' extrinsics branchlessly; their SISO
-            # outputs keep being computed (the batch runs anyway) and are
-            # discarded here, so L/hard derived after the loop are pinned at
-            # the convergence iteration.
-            keep = done[None, :]
-            le21 = torch.where(keep, le21, le21_new)
-            le1 = torch.where(keep, le1, le1_new)
-            iters = iters + (~done).to(torch.int32)
-            if hard_prev is not None:
+                # Freeze converged codewords' extrinsics branchlessly; their
+                # SISO outputs keep being computed (the batch runs anyway)
+                # and are discarded here, so L/hard derived after the loop
+                # are pinned at the convergence iteration.
+                keep = done[None, :]
+                le21 = torch.where(keep, le21, le21_new)
+                le1 = torch.where(keep, le1, le1_new)
+                iters = iters + (~done).to(torch.int32)
                 hard_prev = torch.where(keep, hard_prev, hard_new)
-            done = done | newly_done
-            flag.copy_(done.all(), non_blocking=True)
+                done = done | newly_done
+                all_done = done.all()
+            flag.copy_(all_done, non_blocking=True)
             if ready is not None:
                 ready.record()
         first = siso1(le21, ck1) if it + 1 < cfg.n_iters else None
