@@ -95,6 +95,7 @@ iterating on one phase); the closing lines are printed only by a full run.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -537,42 +538,44 @@ def check_parallel_edges(dev, worst):
     return out
 
 
-def launch_counters():
-    """The launch counts of every kernel wrapper of the port but the layout
-    kernels' (`layout.LAYOUT_LAUNCHES`, which the callers of a decode read
-    themselves)."""
-    from turbotpu_torch import harq
-    from turbotpu_torch.dist import dma
-    from turbotpu_torch.experiments import cost_breakdown, gather_inkernel
-    from turbotpu_torch.siso import cuda_kernel as ck
-    return (ck.LAUNCHES, ck.FP8_LAUNCHES, gather_inkernel.LAUNCHES,
-            cost_breakdown.LAUNCHES, dma.LAUNCHES, harq.COMBINE_LAUNCHES)
-
-
 def count_launches(results, fn):
-    """Run `fn` with every launch count set to 0 just before and read just
-    after; add what it launched to the main path's totals.  Returns (fn's
-    result, launches by kernel less the SISO1 calls the early-exit loop
-    launched ahead of a read and dropped, `turbo_cells.DROPPED`: the
+    """Run `fn` with the port's one launch count (`_device.LAUNCHES`) set to
+    0 just before and read just after; add what it launched, but for the
+    layout kernels (`layout.KERNELS`, which the callers of a decode read
+    themselves through `layout_launches`), to the main path's totals.  Returns
+    (fn's result, launches by kernel less the SISO1 calls the early-exit
+    loop launched ahead of a read and dropped, `turbo_cells.DROPPED`: the
     launches that did an iteration's work, which the callers check)."""
-    from turbotpu_torch.decoder import turbo_cells
+    from turbotpu_torch import _device
+    from turbotpu_torch.decoder import layout, turbo_cells
     turbo_cells.DROPPED.clear()
-    for counts in launch_counters():
-        for name in counts:
-            counts[name] = 0
+    _device.LAUNCHES.clear()
     out = fn()
     torch.cuda.synchronize()
-    launched = {k: v for counts in launch_counters() for k, v in counts.items()}
+    launched = collections.Counter({
+        k: v for k, v in _device.LAUNCHES.items() if k not in layout.KERNELS})
     for name, n in launched.items():
         results[name]["launches"] = results[name].get("launches", 0) + n
-    return out, {k: v - turbo_cells.DROPPED.get(k, 0)
-                 for k, v in launched.items()}
+    return out, collections.Counter(
+        {k: v - turbo_cells.DROPPED.get(k, 0) for k, v in launched.items()})
+
+
+def layout_launches(results):
+    """The layout kernels' launches in the last `count_launches` call, each
+    of `layout.KERNELS` (0 where none), added to the main path's totals."""
+    from turbotpu_torch import _device
+    from turbotpu_torch.decoder import layout
+    lay = {name: _device.LAUNCHES[name] for name in layout.KERNELS}
+    for name, n in lay.items():
+        results[name]["launches"] = results[name].get("launches", 0) + n
+    return lay
 
 
 def only(launched, **expected):
     """Whether exactly the expected kernels were launched, each as often as
     expected."""
-    return all(n == expected.get(name, 0) for name, n in launched.items())
+    return all(launched.get(name, 0) == expected.get(name, 0)
+               for name in {*launched, *expected})
 
 
 def small_decode_vs_cpu(cfg):
@@ -808,7 +811,6 @@ def check_decode(dev, results):
     """Phase `decode`: the main path, with launch counts, and the layout
     kernels at the chained cells' shapes (`check_layout`)."""
     from turbotpu_torch import turbo_decode
-    from turbotpu_torch.decoder import layout
     from turbotpu_torch.harness.bench import flagship_config, make_decode_inputs
 
     K, B, ebn0 = 6144, 1024, 2.0
@@ -818,26 +820,15 @@ def check_decode(dev, results):
     bits = torch.from_numpy(bits).to(dev)
     rec = {"K": K, "B": B, "ebn0_db": ebn0}
 
-    def layout_count(fn):
-        """fn's result and its launches of layout.cu's kernels, added to
-        the main path's totals."""
-        for name in layout.LAYOUT_LAUNCHES:
-            layout.LAYOUT_LAUNCHES[name] = 0
-        out = fn()
-        lay = dict(layout.LAYOUT_LAUNCHES)
-        for name, n in lay.items():
-            results[name]["launches"] = results[name].get("launches", 0) + n
-        return out, lay
-
     def layout_expected(n_exit):
         """One launch of each layout crossing, the exit's two kernels once
         an iteration run."""
         return {"pack_kernel": 1, "unpack_kernel": 1, "exit_kernel": n_exit,
                 "exit_close_kernel": n_exit}
 
-    ((hard, iters, L), launched), rec["layout_launches"] = layout_count(
-        lambda: count_launches(
-            results, lambda: turbo_decode(*inputs, flagship_config())))
+    (hard, iters, L), launched = count_launches(
+        results, lambda: turbo_decode(*inputs, flagship_config()))
+    rec["layout_launches"] = layout_launches(results)
     if not only(launched, siso_nii=12):
         raise AssertionError(f"lean decode: 12 siso_nii launches expected, "
                              f"counted {launched}")
@@ -852,9 +843,10 @@ def check_decode(dev, results):
     rec["lean_bit_errors"] = int((hard != bits).sum())
     rec["lean_iters"] = int(iters.max())
 
-    ((hard_c, iters_c, _), launched_c), lay_c = layout_count(
-        lambda: count_launches(results, lambda: turbo_decode(
-            *inputs, flagship_config(early_term="crc"))))
+    (hard_c, iters_c, _), launched_c = count_launches(
+        results, lambda: turbo_decode(*inputs,
+                                      flagship_config(early_term="crc")))
+    lay_c = layout_launches(results)
     rec["crc_bit_errors"] = int((hard_c != bits).sum())
     rec["crc_max_iters"] = int(iters_c.max())
     rec["crc_mean_iters"] = float(iters_c.float().mean())
@@ -888,9 +880,10 @@ def check_decode(dev, results):
     B3, K3 = EXIT_SHAPE[:2]
     inputs3 = tuple(x.to(dev) for x in make_decode_inputs(
         K3, B3, seed=5, ebn0_db=1.0, with_crc=True))
-    ((_, iters3, _), launched3), lay3 = layout_count(
-        lambda: count_launches(results, lambda: turbo_decode(
-            *inputs3, flagship_config(K=K3, early_term="crc"))))
+    (_, iters3, _), launched3 = count_launches(
+        results, lambda: turbo_decode(
+            *inputs3, flagship_config(K=K3, early_term="crc")))
+    lay3 = layout_launches(results)
     n3 = int(iters3.max())
     rec["cell_size_crc"] = {"K": K3, "B": B3, "max_iters": n3,
                             "mean_iters": float(iters3.float().mean()),
@@ -1291,7 +1284,6 @@ def check_harq(dev, card, results):
     size over TTIs of the cell's mix, each counted alone: one combine launch
     a run of blocks, the decode's SISO and layout launches, nothing else."""
     from turbotpu_torch import harq
-    from turbotpu_torch.decoder import layout
     from turbotpu_torch.decoder.turbo import DecoderConfig
     from turbotpu_torch.harness.profiling import compiled_stats
     from turbotpu_torch.siso.cuda_kernel import kernel_name
@@ -1398,15 +1390,11 @@ def check_harq(dev, card, results):
         llr = [torch.randn(((r1 - r0) * n, E), generator=g, device=dev)
                * math.sqrt(8) + 4 for r0, r1, (_, E, _) in rx.runs]
         torch.cuda.synchronize()
-        for name in layout.LAYOUT_LAUNCHES:
-            layout.LAYOUT_LAUNCHES[name] = 0
         out, launched = count_launches(
             results, lambda: rx.receive(tti % 2, llr, rv, new))
         iters = int(out["iters"].max())
         want = {"combine_kernel": len(rx.runs), siso: 2 * iters}
-        lay = dict(layout.LAYOUT_LAUNCHES)
-        for name, c in lay.items():
-            results[name]["launches"] = results[name].get("launches", 0) + c
+        lay = layout_launches(results)
         per_tti.append({"tti": tti, "retx_share": float((~new).float().mean()),
                         "max_iters": iters, "ok_share": float(
                             out["ok"].float().mean()),
@@ -1803,6 +1791,7 @@ def check_dist(dev, card, results):
     import tempfile
 
     import torch.distributed as tdist
+    from turbotpu_torch import _device
     from turbotpu_torch.dist import dma
     from turbotpu_torch.dist.data_parallel import (count_errors_sharded,
                                                    decode_batch_sharded)
@@ -1869,7 +1858,7 @@ def check_dist(dev, card, results):
                     ("library", library), ("kernel", kernel)):
         turns[who].append(time_launches(fn, 100))
         turns[f"{who}_device"].append(
-            graph_ms(fn, 20, counts=dma.LAUNCHES))
+            graph_ms(fn, 20))
     ring_flags = ring.flags.tolist()
     made = ring_flags[2 * 2 + 1]
     if ring_flags[:2] != [2 * made] * 2 or ring_flags[2 * 2] != 0:
@@ -1901,7 +1890,7 @@ def check_dist(dev, card, results):
                                                         ebn0_db=1.5))
     cfg = flagship_config(K=168, window=0, nii=False, boundary_xch="dma")
     dma.ring_buffers(mesh, 2, (2, 8, 64), torch.float32).error.fill_(2)
-    dma.LAUNCHES["ring_xch"] = 0
+    _device.LAUNCHES["ring_xch"] = 0
     try:
         decode_seq_sharded(mesh, cfg)(*small)
     except RuntimeError as e:
@@ -1910,12 +1899,12 @@ def check_dist(dev, card, results):
         raise AssertionError("a set ring_xch error flag did not raise at the "
                              "end of the sequence decode")
     torch.cuda.synchronize()
-    if dma.LAUNCHES["ring_xch"] != cfg.n_iters or "never landed" not in raised:
-        raise AssertionError(f"the error flag raised after "
-                             f"{dma.LAUNCHES['ring_xch']} of {cfg.n_iters} "
-                             f"exchanges: {raised}")
+    n_xch = _device.LAUNCHES["ring_xch"]
+    if n_xch != cfg.n_iters or "never landed" not in raised:
+        raise AssertionError(f"the error flag raised after {n_xch} of "
+                             f"{cfg.n_iters} exchanges: {raised}")
     rec["error_flag_raises_at_decode_end"] = {
-        "exchanges_before": dma.LAUNCHES["ring_xch"], "message": raised}
+        "exchanges_before": n_xch, "message": raised}
 
     # data_parallel through NCCL with a world of one: a FileStore in a
     # temporary directory, no network
@@ -1968,9 +1957,6 @@ def run_compact(dev, card, results):
             stage1_iters=3))
         rec["launches"] = {k: v for k, v in launched.items() if v}
         rec["card"] = card
-        # each batch combines its one transmission of each block: one
-        # launch a block (C6's two blocks differ in K)
-        combines = rec["tbs"] // C6_TB.n_tb * rec["C"] * len(rec["rvs"])
         # the contract: the same frames give the same counts
         if (rec["bit_errs"], rec["frame_errs"]) != (rec["bit_errs_single"],
                                                     rec["frame_errs_single"]):
@@ -2056,9 +2042,6 @@ def run_ber(dev, card, results):
             results, lambda: ber.simulate_point(cfg, ebn0, step))
         rec["launches"] = {k: v for k, v in launched.items() if v}
         rec["card"] = card
-        # each batch combines its one transmission of each block: one
-        # launch a block (C6's two blocks differ in K)
-        combines = rec["tbs"] // C6_TB.n_tb * rec["C"] * len(rec["rvs"])
         for key in ("frames", "bit_errs", "frame_errs", "ber", "fer",
                     "avg_iters", "wall_s", "mbit_per_s"):
             if not np.isfinite(rec[key]):
@@ -2136,8 +2119,8 @@ def fp8_replaces(mode: str, fold: bool, bnd: bool) -> str:
 def fp8_libraries():
     """(name, chan, mode, fold, bnd) of the eighteen fp8 libraries."""
     from turbotpu_torch.siso import cuda_kernel as ck
-    return [(ck.fp8_name(dt, mode, fold, bnd), chan, mode, fold, bnd)
-            for fold, bnd in ck.FORMS for chan, dt in CHANS.items()
+    return [(ck.kernel_name(True, mode, fold, bnd, dt, ck.FP8), chan, mode,
+             fold, bnd) for fold, bnd in ck.FORMS for chan, dt in CHANS.items()
             for mode in MODES]
 
 
@@ -2213,7 +2196,7 @@ def check_fp8(dev, card, results):
             scale = 0.75 if mode == "maxlog" else 1.0
             la, ain = cold(ls1, lp1, K, mode, scale, W, B)
             for fold in (False, True):
-                name = ck.fp8_name(dt, mode, fold)
+                name = ck.kernel_name(True, mode, fold, False, dt, ck.FP8)
                 gather = idx if fold else None
 
                 def call():
@@ -2242,8 +2225,8 @@ def check_fp8(dev, card, results):
             # the exact contract of the plain library, at the same shape
             got = ck.siso_cells(ls2, lp2, la, K, mode, scale, window=W)
             want = ck.siso_exact_plain(ls2, lp2, la, K, W, scale, 0.0, mode)
-            hold(ck.fp8_name(dt, mode), (got,), (want,), contract="exact",
-                 mode=mode, **shape)
+            hold(ck.kernel_name(False, mode, chan=dt, ext=ck.FP8), (got,),
+                 (want,), contract="exact", mode=mode, **shape)
 
     # K4: both boundary contracts at C5's seq=2 chunks (the last chunk, row
     # offset C), edges from calls on the first and the last chunk
@@ -2282,7 +2265,7 @@ def check_fp8(dev, card, results):
         want = list(want)
         if nii:                      # slot 0 of the table is never written
             got[1], want[1] = got[1][1:], want[1][1:]
-        name = ck.fp8_name(dt, mode, bnd=True)
+        name = ck.kernel_name(nii, mode, False, True, dt, ck.FP8)
         hold(name, got, want, contract="bnd_nii" if nii else "bnd_exact",
              mode=mode, C=C, W=W, row_offset=j * C, **shape)
         if time_it:
@@ -2326,13 +2309,14 @@ def check_fp8(dev, card, results):
                     want = ck.siso_nii_plain(ls, lp, la, ain, K_real, W,
                                              scale, 0.0, mode,
                                              gather_idx=gather)
-                    hold(ck.fp8_name(dt, mode, fold), (got[0], got[1][1:]),
+                    hold(ck.kernel_name(True, mode, fold, False, dt, ck.FP8),
+                         (got[0], got[1][1:]),
                          (want[0], want[1][1:]), contract="nii", **shape)
                 got = ck.siso_cells(ls, lp, la, K_real, mode, scale, window=W)
                 want = ck.siso_exact_plain(ls, lp, la, K_real, W, scale, 0.0,
                                            mode)
-                hold(ck.fp8_name(dt, mode), (got,), (want,),
-                     contract="exact", **shape)
+                hold(ck.kernel_name(False, mode, chan=dt, ext=ck.FP8), (got,),
+                     (want,), contract="exact", **shape)
             # K4 at B=70 (chunks of 88 steps) and a chunk of one segment
             for K_s, B_s in ((168, 70), (120, 37)):
                 C, W, _, KTp = chunk_sizing(K_s + 3, 2)
@@ -2356,7 +2340,7 @@ def check_fp8(dev, card, results):
                                     with_crc=True, return_bits=True)
     flag = tuple(x.to(dev) for x in flag)
     bits = torch.from_numpy(bits).to(dev)
-    name = ck.fp8_name(torch.bfloat16, "maxlog")
+    name = ck.kernel_name(True, "maxlog", chan=torch.bfloat16, ext=ck.FP8)
     for early in ("none", "crc"):
         (hard, iters, L), launched = count_launches(
             results, lambda: turbo_decode(*flag, fp8_cfg(early_term=early)))
@@ -2433,7 +2417,8 @@ def check_fp8(dev, card, results):
     fe_ref = c5_recs["bfloat16"]["frame_errs"]
     diff, band = fer_band(fe, n, fe_ref, n)
     if not (c5_recs["float8_e4m3fn"]["launches"].get(
-            ck.fp8_name(torch.bfloat16, "maxlog", bnd=True), 0) > 0
+            ck.kernel_name(True, "maxlog", bnd=True, chan=torch.bfloat16,
+                           ext=ck.FP8), 0) > 0
             and diff <= band):
         raise AssertionError(f"cli c5 fp8: {c5_recs}")
     rec["c5"] = {ext: {k: r[k] for k in ("wall_s", "mbit_per_s", "ber",

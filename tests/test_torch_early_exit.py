@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from turbotpu_torch import DecoderConfig, turbo_decode
+from turbotpu_torch import DecoderConfig, _device, turbo_decode
 from turbotpu_torch.decoder import layout
 from turbotpu_torch.decoder.early_term import make_crc_matrix
 from turbotpu_torch.harness.bench import make_decode_inputs
@@ -164,9 +164,9 @@ def test_plain_exit_matches_by_hand(B, K, poly, carry, table, ext, chan):
     p = POLYS[poly]
     args, deq = exit_case(B, K, chan, ext, p, carry, table, seed=B * K)
     want = exit_by_hand(*args, K, deq, ext, p)
-    before = dict(layout.LAYOUT_LAUNCHES)
+    before = dict(_device.LAUNCHES)
     le1, le21, done, iters, all_done = layout.crc_exit(*args, K, deq, ext, p)
-    assert layout.LAYOUT_LAUNCHES == before
+    assert _device.LAUNCHES == before
     np.testing.assert_array_equal(_bits(le1), want[0])
     np.testing.assert_array_equal(_bits(le21), want[1])
     np.testing.assert_array_equal(done.numpy(), want[2])
@@ -268,9 +268,10 @@ def _kernel_vs_plain(B, K, chan, ext, poly, carry, table, seed):
     if carry == "natural":
         got_args = got_args[:4] + (got_args[5], got_args[5]) + got_args[6:]
     scratch = layout.crc_exit_scratch(B, dev)
-    before = dict(layout.LAYOUT_LAUNCHES)
+    before = dict(_device.LAUNCHES)
     got = layout.crc_exit(*got_args, K, deq, ext, poly, scratch)
-    assert {k: layout.LAYOUT_LAUNCHES[k] - before[k] for k in before} == {
+    assert {k: _device.LAUNCHES[k] - before.get(k, 0)
+            for k in layout.KERNELS} == {
         "pack_kernel": 0, "unpack_kernel": 0, "exit_kernel": 1,
         "exit_close_kernel": 1}
     torch.cuda.synchronize()
@@ -325,11 +326,12 @@ def test_crc_decode_launches_the_exit_each_iteration(cfg_kw):
     for term in ("crc", "none"):
         cfg = DecoderConfig(K=K, n_iters=5, mode="maxlog", siso="cuda",
                             early_term=term, **cfg_kw)
-        before = dict(layout.LAYOUT_LAUNCHES)
+        before = dict(_device.LAUNCHES)
         got = turbo_decode(*inputs, cfg)
         torch.cuda.synchronize()
         n = int(got[1].max()) if term == "crc" else 0
-        assert {k: layout.LAYOUT_LAUNCHES[k] - before[k] for k in before} == {
+        assert {k: _device.LAUNCHES[k] - before.get(k, 0)
+                for k in layout.KERNELS} == {
             "pack_kernel": 1, "unpack_kernel": 1, "exit_kernel": n,
             "exit_close_kernel": n}
         want = turbo_decode(*inputs, cfg, device="cpu")

@@ -21,7 +21,7 @@ import torch
 from turbotpu.decoder.turbo import DecoderConfig as JaxConfig
 from turbotpu.decoder.turbo import turbo_decode as jax_decode
 from turbotpu.siso import pallas_kernel as jk
-from turbotpu_torch import DecoderConfig, convert, turbo_decode
+from turbotpu_torch import DecoderConfig, _device, convert, turbo_decode
 from turbotpu_torch.decoder.bucketing import grouped_perm_tables
 from turbotpu_torch.experiments import cost_breakdown as cb
 from turbotpu_torch.experiments import gather_inkernel as gi
@@ -220,7 +220,7 @@ def test_wrapper_checks_the_gather_table():
     with pytest.raises(ValueError, match="NII contract only"):
         ck.kernel_name(False, "maxlog", fold=True)
     assert ck.kernel_name(True, "linlog", fold=True) == "siso_nii_fold_linlog"
-    assert set(ck.LAUNCHES) == {
+    assert set(ck.KERNEL_NAMES) == {
         f"siso_{c}{m}" for c in ("nii", "exact", "nii_fold", "bnd_nii",
                                  "bnd_exact")
         for m in ("", "_linlog", "_logmap")}
@@ -339,10 +339,10 @@ def test_new_kernels_match_plain_on_card(kernel):
             ls, lp, torch.zeros((T, B), dtype=torch.int8, device=dev), K,
             "maxlog", 0.75, window=W, ext_qscale=0.25,
             nii_ckpt=torch.zeros((T // W, 8, B), device=dev))
-        before = ck.LAUNCHES["siso_nii_fold"]
+        before = _device.LAUNCHES["siso_nii_fold"]
         le, aout = ck.siso_cells(ls, lp, raw, K, "maxlog", 0.75, window=W,
                                  ext_qscale=0.25, nii_ckpt=ain, gather_idx=idx)
-        assert ck.LAUNCHES["siso_nii_fold"] == before + 1
+        assert _device.LAUNCHES["siso_nii_fold"] == before + 1
         le_p, aout_p = ck.siso_nii_plain(ls, lp, raw, ain, K, W, 0.75, 0.25,
                                          gather_idx=idx)
         assert torch.equal(le, le_p) and torch.equal(aout[1:], aout_p[1:])
@@ -353,14 +353,14 @@ def test_new_kernels_match_plain_on_card(kernel):
                       (torch.float32, 3), (torch.int8, 7)):
             src = (torch.randn((96, B), device=dev) * 20).to(dt)
             idx = torch.randperm(96, device=dev).to(torch.int32)
-            before = gi.LAUNCHES["row_gather"]
+            before = _device.LAUNCHES["row_gather"]
             assert torch.equal(gi.row_gather(src, idx),
                                gi.row_gather_plain(src, idx))
-            assert gi.LAUNCHES["row_gather"] == before + 1
+            assert _device.LAUNCHES["row_gather"] == before + 1
     else:
         x = torch.rand(200, device=dev) + 0.5
         for lanes in cb.LANES:
-            before = cb.LAUNCHES["issue_rate"]
+            before = _device.LAUNCHES["issue_rate"]
             assert torch.equal(cb.issue_rate(x, lanes, 4096),
                                cb.issue_rate_plain(x, lanes, 4096))
-            assert cb.LAUNCHES["issue_rate"] == before + 1
+            assert _device.LAUNCHES["issue_rate"] == before + 1

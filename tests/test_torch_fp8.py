@@ -200,15 +200,15 @@ def test_folded_read_equals_materialised_gather(mode):
 
 def test_eighteen_libraries_and_their_counters():
     """fp8 adds one library per (mode, channel type, form): 72 variants of
-    siso.cu in all, and 18 launch counters, one per fp8 library, each
-    reached by the calls that launch it."""
+    siso.cu in all, and 18 launch names, one per fp8 library, under which
+    the calls that launch it count."""
     targets = ck.build_targets()
     assert len(targets) == len(set(targets)) == 72
     fp8 = [t for t in targets if "-DSISO_EXT=3" in t[1]]
     assert len(fp8) == 18
-    assert len(set(ck.FP8_NAMES)) == 18 and set(ck.FP8_NAMES) == set(
-        ck.FP8_LAUNCHES) and not set(ck.FP8_NAMES) & set(ck.LAUNCHES)
-    count = lambda *a: ck.launch_count(*a)[1]
+    assert len(set(ck.FP8_NAMES)) == 18 and len(ck.KERNEL_NAMES) == 15
+    assert not set(ck.FP8_NAMES) & set(ck.KERNEL_NAMES)
+    count = ck.kernel_name
     assert count(True, "maxlog", False, False, torch.bfloat16,
                  FP8) == "siso_fp8_bf16"
     assert count(False, "maxlog", False, False, torch.bfloat16,
@@ -217,8 +217,8 @@ def test_eighteen_libraries_and_their_counters():
                  FP8) == "siso_fp8_fold_f32_linlog"
     assert count(False, "logmap", False, True, torch.bfloat16,
                  FP8) == "siso_fp8_bnd_bf16_logmap"
-    assert ck.launch_count(True, "maxlog", False, False, torch.bfloat16,
-                           torch.int8) == (ck.LAUNCHES, "siso_nii")
+    assert count(True, "maxlog", False, False, torch.bfloat16,
+                 torch.int8) == "siso_nii"
     assert _build.library(fp8[0]).name.startswith("libsiso-")
 
 

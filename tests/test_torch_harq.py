@@ -20,7 +20,7 @@ import torch
 
 from perfbench.harness import gen, harq_gen
 from perfbench.reference import harq_ref, turbo_ref
-from turbotpu_torch import harq
+from turbotpu_torch import _device, harq
 from turbotpu_torch.decoder.turbo import DecoderConfig
 from turbotpu_torch.harness import tb as ttb
 from turbotpu_torch.spec.crc import CRC24A_POLY, CRC24B_POLY
@@ -370,10 +370,10 @@ def test_the_kernel_equals_its_plain_version(card, shape):
         table, period = harq.combine_table(K, E, F, bucket,
                                            torch.device("cpu"))
         harq.combine(cpu, llr, table, period, rv, new)
-        before = harq.COMBINE_LAUNCHES["combine_kernel"]
+        before = _device.LAUNCHES["combine_kernel"]
         harq.combine(dev, llr.to(card), table.to(card), period, rv.to(card),
                      new.to(card))
         torch.cuda.synchronize()
-        assert harq.COMBINE_LAUNCHES["combine_kernel"] == before + 1
+        assert _device.LAUNCHES["combine_kernel"] == before + 1
         for a, b in zip(cpu, dev):
             assert torch.equal(a.view(torch.int32), b.cpu().view(torch.int32))

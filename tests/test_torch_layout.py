@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from turbotpu_torch import DecoderConfig, turbo_decode
+from turbotpu_torch import DecoderConfig, _device, turbo_decode
 from turbotpu_torch.decoder import layout
 from turbotpu_torch.harness.bench import make_decode_inputs
 from turbotpu_torch.siso.cuda_kernel import BIG, FP8
@@ -99,9 +99,9 @@ def test_pack_plain_matches_numpy(B, K, W, table, dtype):
     KTp = _ktp(K, W)
     inputs = _inputs(B, K, seed=K + B)
     perm = _tables(B, K, seed=B)[table]
-    launches = dict(layout.LAYOUT_LAUNCHES)
+    launches = dict(_device.LAUNCHES)
     got = layout.pack_streams(*inputs, KTp, dtype, perm)    # CPU: plain
-    assert layout.LAYOUT_LAUNCHES == launches
+    assert _device.LAUNCHES == launches
     want = _streams_np(*inputs, KTp, perm)
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == (KTp, B)
@@ -218,9 +218,9 @@ def test_pack_kernel_matches_plain_on_card(B, K, W, table, dtype):
     KTp = _ktp(K, W)
     inputs = [x.to(dev) for x in _inputs(B, K, seed=K + B)]
     perm = _tables(B, K, seed=B)[table].to(dev)
-    before = layout.LAYOUT_LAUNCHES["pack_kernel"]
+    before = _device.LAUNCHES["pack_kernel"]
     got = layout.pack_streams(*inputs, KTp, dtype, perm)
-    assert layout.LAYOUT_LAUNCHES["pack_kernel"] == before + 1
+    assert _device.LAUNCHES["pack_kernel"] == before + 1
     want = layout.pack_streams_plain(*inputs, KTp, dtype, perm)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
@@ -246,9 +246,9 @@ def test_assemble_kernel_matches_plain_on_card(B, K, W, fold, ext, chan):
             [qpp_inv(K), np.arange(K, KTp)]).astype(np.int64)).to(dev)
         le21 = le21.index_select(0, inv_e)
     deq = 0.75 * 0.25 if ext == torch.int8 else 0.75
-    before = layout.LAYOUT_LAUNCHES["unpack_kernel"]
+    before = _device.LAUNCHES["unpack_kernel"]
     hard, L = layout.assemble_outputs(ls1, le1, le21, K, deq, ext)
-    assert layout.LAYOUT_LAUNCHES["unpack_kernel"] == before + 1
+    assert _device.LAUNCHES["unpack_kernel"] == before + 1
     want_hard, want_L = layout.assemble_outputs_plain(ls1, le1, le21, K, deq,
                                                       ext)
     torch.cuda.synchronize()
@@ -272,10 +272,11 @@ def test_decode_runs_both_kernels_and_matches_cpu(cfg_kw):
     K, B = 168, 33
     inputs = make_decode_inputs(K, B, seed=4, ebn0_db=1.0, with_crc=True)
     cfg = DecoderConfig(K=K, n_iters=4, mode="maxlog", siso="cuda", **cfg_kw)
-    before = dict(layout.LAYOUT_LAUNCHES)
+    before = dict(_device.LAUNCHES)
     got = turbo_decode(*inputs, cfg)
     n_exit = int(got[1].max()) if cfg.early_term == "crc" else 0
-    assert {k: layout.LAYOUT_LAUNCHES[k] - before[k] for k in before} == {
+    assert {k: _device.LAUNCHES[k] - before.get(k, 0)
+            for k in layout.KERNELS} == {
         "pack_kernel": 1, "unpack_kernel": 1, "exit_kernel": n_exit,
         "exit_close_kernel": n_exit}
     want = turbo_decode(*inputs, cfg, device="cpu")

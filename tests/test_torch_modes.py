@@ -15,7 +15,7 @@ import torch
 
 from turbotpu.siso import pallas_kernel as jk
 from turbotpu.siso.scan import siso_decode_scan as j_scan
-from turbotpu_torch import convert
+from turbotpu_torch import _device, convert
 from turbotpu_torch.harness.bench import make_decode_inputs
 from turbotpu_torch.siso import cuda_kernel as ck
 
@@ -124,7 +124,7 @@ def test_modes_differ_and_launch_names():
     # linlog tracks log-MAP more closely than max-log does
     assert ((le["linlog"] - le["logmap"]).abs().mean()
             < (le["maxlog"] - le["logmap"]).abs().mean())
-    assert sorted(ck.LAUNCHES) == sorted(
+    assert sorted(ck.KERNEL_NAMES) == sorted(
         ["siso_nii", "siso_exact", "siso_nii_linlog", "siso_exact_linlog",
          "siso_nii_logmap", "siso_exact_logmap", "siso_nii_fold",
          "siso_nii_fold_linlog", "siso_nii_fold_logmap", "siso_bnd_nii",
@@ -132,9 +132,9 @@ def test_modes_differ_and_launch_names():
          "siso_bnd_nii_logmap", "siso_bnd_exact_logmap"])
     assert ck.kernel_name(True, "maxlog") == "siso_nii"
     assert ck.kernel_name(False, "linlog") == "siso_exact_linlog"
-    before = dict(ck.LAUNCHES)
+    before = _device.LAUNCHES.copy()
     ck.siso_cells(ls, lp, la, K, "linlog", window=W)
-    assert ck.LAUNCHES == before      # a CPU tensor launches nothing
+    assert _device.LAUNCHES == before  # a CPU tensor launches nothing
 
 
 @pytest.mark.cuda
@@ -148,14 +148,14 @@ def test_mode_kernels_match_plain_on_card(mode, tol):
     dev = torch.device("cuda")
     ls, lp = (torch.from_numpy(x).to(dev) for x in _streams(K, B, W, seed=11))
     T = ls.shape[0]
-    before = dict(ck.LAUNCHES)
+    before = _device.LAUNCHES.copy()
     la, ain = ck.siso_cells(ls, lp, torch.zeros((T, B), device=dev), K, mode,
                             window=W,
                             nii_ckpt=torch.zeros((T // W, 8, B), device=dev))
     le, aout = ck.siso_cells(ls, lp, la, K, mode, window=W, nii_ckpt=ain)
     le_x = ck.siso_cells(ls, lp, la, K, mode, window=W)
-    assert ck.LAUNCHES[f"siso_nii_{mode}"] == before[f"siso_nii_{mode}"] + 2
-    assert ck.LAUNCHES[f"siso_exact_{mode}"] == before[f"siso_exact_{mode}"] + 1
+    for name, n in ((f"siso_nii_{mode}", 2), (f"siso_exact_{mode}", 1)):
+        assert _device.LAUNCHES[name] == before[name] + n
     le_p, aout_p = ck.siso_nii_plain(ls, lp, la, ain, K, W, mode=mode)
     le_xp = ck.siso_exact_plain(ls, lp, la, K, W, mode=mode)
     assert float((le - le_p).abs().max()) <= tol

@@ -16,7 +16,7 @@ import torch
 
 from turbotpu.siso import pallas_kernel as jk
 from turbotpu.siso.scan import siso_decode_scan as j_scan
-from turbotpu_torch import convert
+from turbotpu_torch import _device, convert
 from turbotpu_torch.golden.numpy_ref import bcjr_siso
 from turbotpu_torch.harness.bench import make_decode_inputs
 from turbotpu_torch.siso import cuda_kernel as ck
@@ -234,15 +234,15 @@ def test_kernels_match_plain_on_card(chan, ext):
     ls_np, lp_np = _streams(K, B, W, seed=11)
     ls, lp = (torch.from_numpy(x).to(dev, TORCH_DT[chan]) for x in (ls_np, lp_np))
     T = ls.shape[0]
-    before = dict(ck.LAUNCHES)
+    before = _device.LAUNCHES.copy()
     la, ain = ck.siso_cells(ls, lp, torch.zeros((T, B), dtype=TORCH_DT[ext], device=dev),
                             K, "maxlog", scale, window=W, ext_qscale=qs,
                             nii_ckpt=torch.zeros((T // W, 8, B), device=dev))
     le, aout = ck.siso_cells(ls, lp, la, K, "maxlog", scale, window=W,
                              ext_qscale=qs, nii_ckpt=ain)
     le_x = ck.siso_cells(ls, lp, la, K, "maxlog", scale, window=W, ext_qscale=qs)
-    assert ck.LAUNCHES["siso_nii"] == before["siso_nii"] + 2
-    assert ck.LAUNCHES["siso_exact"] == before["siso_exact"] + 1
+    assert _device.LAUNCHES["siso_nii"] == before["siso_nii"] + 2
+    assert _device.LAUNCHES["siso_exact"] == before["siso_exact"] + 1
     le_p, aout_p = ck.siso_nii_plain(ls, lp, la, ain, K, W, scale, qs)
     assert torch.equal(le, le_p) and torch.equal(aout[1:], aout_p[1:])
     assert torch.equal(le_x, ck.siso_exact_plain(ls, lp, la, K, W, scale, qs))
@@ -262,18 +262,18 @@ def test_kernels_match_plain_on_card(chan, ext):
                 scale, window=W_, ext_qscale=qs,
                 nii_ckpt=torch.zeros((T_ // W_, 8, B), device=dev))
             name = ck.kernel_name(False, mode)
-            n = ck.LAUNCHES[name]
+            n = _device.LAUNCHES[name]
             got = ck.siso_cells(ls_, lp_, la_, K_real, mode, scale,
                                 window=W_, ext_qscale=qs)
-            assert ck.LAUNCHES[name] == n + 1
+            assert _device.LAUNCHES[name] == n + 1
             assert torch.equal(got, ck.siso_exact_plain(
                 ls_, lp_, la_, K_real, W_, scale, qs, mode)), (mode, K_, W_)
             name = ck.kernel_name(True, mode)
-            n = ck.LAUNCHES[name]
+            n = _device.LAUNCHES[name]
             got, aout_ = ck.siso_cells(ls_, lp_, la_, K_real, mode, scale,
                                        window=W_, ext_qscale=qs,
                                        nii_ckpt=ain_)
-            assert ck.LAUNCHES[name] == n + 1
+            assert _device.LAUNCHES[name] == n + 1
             want, aout_p = ck.siso_nii_plain(ls_, lp_, la_, ain_, K_real, W_,
                                              scale, qs, mode)
             assert torch.equal(got, want), (mode, K_, W_)

@@ -104,23 +104,31 @@ def load(name: str, defines: tuple[str, ...] = (),
     return _loaded[target]
 
 
+def f64_bits(x: float) -> int:
+    """A Python float's bits, for an int64 argument block: the C side reads
+    them back as a double (and rounds to fp32 with a cast where it takes a
+    float, as ctypes' c_float does)."""
+    return struct.unpack("<q", struct.pack("<d", x))[0]
+
+
 class PackedEntry:
-    """A kernel's C entry that takes one pointer to a block of int64
-    arguments, resolved from its library at the first call.  A typed ctypes
-    call converts every argument, which costs several microseconds a call on
-    the host; one pointer costs below one.  Each thread packs into a block of
-    its own (ctypes releases the GIL during the call).  Calling it returns
-    the entry's int."""
+    """A kernel's C entry that takes one pointer to a block of `n_args`
+    int64 arguments, the cudaStream_t last, resolved from its library at the
+    first call.  A typed ctypes call converts every argument, which costs
+    several microseconds a call on the host; one pointer costs below one.
+    Each thread packs into a block of its own (ctypes releases the GIL
+    during the call).  Calling it returns the entry's int; kernels are
+    launched through `_device.launch_on`, which adds the stream."""
 
     def __init__(self, target: Target, symbol: str, n_args: int):
-        self._target, self._symbol = target, symbol
+        self.target, self.symbol, self.n_args = target, symbol, n_args
         self._args = struct.Struct(f"{n_args}q")
         self._fn = None
         self._blocks = threading.local()
 
     def __call__(self, *args: int) -> int:
         if self._fn is None:
-            fn = getattr(load(*self._target), self._symbol)
+            fn = getattr(load(*self.target), self.symbol)
             fn.restype = ctypes.c_int
             self._fn = fn
         blk = getattr(self._blocks, "blk", None)

@@ -3,6 +3,8 @@ for the CPU.  No entry point probes for a GPU and carries on without one."""
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 
@@ -28,11 +30,24 @@ def raw_stream(index: int) -> int:
     return torch.cuda.current_stream(index).cuda_stream
 
 
-def launch_on(index: int, entry, *args) -> int:
+# The port's one launch count: kernel launches by the names their wrappers
+# give them (`launch_on`'s `count`).
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def launch_on(index: int, entry, *args, count: tuple[str, ...]) -> int:
     """Call a kernel's packed C entry (`_build.PackedEntry`) with `args` and
     the current stream of CUDA device `index`, entering that device's
-    context only when it is not the current one.  Returns the entry's int."""
+    context only when it is not the current one.  A launch that succeeds
+    adds one to `LAUNCHES` under each name in `count`: the kernels the
+    entry launched, or none for a launch that only measures.  Returns the
+    entry's int."""
     if index == torch.cuda.current_device():
-        return entry(*args, raw_stream(index))
-    with torch.cuda.device(index):
-        return entry(*args, raw_stream(index))
+        rc = entry(*args, raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = entry(*args, raw_stream(index))
+    if rc == 0:
+        for name in count:
+            LAUNCHES[name] += 1
+    return rc

@@ -47,18 +47,20 @@ __global__ void issue_rate_kernel(const float* __restrict__ x,
 
 }  // namespace
 
-// x: (n_threads,) fp32; out: (n_threads, lanes) fp32; lanes 1, 8 or 16;
-// n_blocks: loop trips of 8 chain steps each; grid x threads >= n_threads.
+// One launch.  `a` holds eight int64 arguments (read before the launch, so
+// the caller may reuse the block at once): a[0] x, (n_threads,) fp32; a[1]
+// out, (n_threads, lanes) fp32; a[2] n_threads; a[3] lanes, 1, 8 or 16;
+// a[4] n_blocks, loop trips of 8 chain steps each; a[5] grid and a[6]
+// threads, grid x threads >= n_threads; a[7] the cudaStream_t.
 // Returns the launch's cudaError_t (0 = ok), or -1 for an unknown `lanes`.
-extern "C" int turbotpu_issue_rate_launch(const void* x, void* out,
-                                          int64_t n_threads, int lanes,
-                                          int n_blocks, int grid, int threads,
-                                          void* stream) {
-  const float* xi = (const float*)x;
-  float* o = (float*)out;
-  cudaStream_t st = (cudaStream_t)stream;
+extern "C" int turbotpu_issue_rate_launch(const int64_t* a) {
+  const float* xi = (const float*)a[0];
+  float* o = (float*)a[1];
+  const int64_t n_threads = a[2];
+  const int n_blocks = (int)a[4], grid = (int)a[5], threads = (int)a[6];
+  cudaStream_t st = (cudaStream_t)a[7];
   if ((int64_t)grid * threads < n_threads) return (int)cudaErrorInvalidValue;
-  switch (lanes) {
+  switch (a[3]) {
     case 1:
       issue_rate_kernel<1><<<grid, threads, 0, st>>>(xi, o, n_threads,
                                                      n_blocks);

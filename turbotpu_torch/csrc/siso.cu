@@ -855,40 +855,46 @@ template <> struct StreamType<2> { using type = int8_t; };
 template <> struct StreamType<3> { using type = __nv_fp8_e4m3; };
 }  // namespace
 
-// The entry of every library.  passes: 3 for a call, 1 or 2 for that pass
-// alone, to time it (pass 2 alone reads the checkpoints in ckpt, so a full
-// launch on the same operands comes first).  mode, chan_type, ext_type: the
-// caller's codes, which must be this library's (else -1).
-//   nii != 0: (n_win, W) are the windows; ain/aout are (n_win, 8, B) fp32,
-//             ckpt is (2, n_win * W / segment_of(W), 8, B) fp32 scratch;
-//   nii == 0: (n_win, W) are the segments the wrapper cut (W =
-//             segment_of(n_win * W)); ckpt is (2, n_win, 8, B) fp32
-//             scratch, ain/aout unused.
+// The entry of every library: one pointer to 25 int64 arguments, read
+// before the launch (the caller may reuse the block at once).
+//   a[0] passes: 3 for a call, 1 or 2 for that pass alone, to time it (pass
+//        2 alone reads the checkpoints in ckpt, so a full launch on the same
+//        operands comes first);
+//   a[1..3] the mode, channel and extrinsic type codes, which must be this
+//        library's (else -1); a[4] nii;
+//   a[5..16] device addresses, 0 for none: ls, lp, la, idx, le, ain, aout,
+//        ckpt, then the edges a_in, b_in, a_out, b_out;
+//   a[17] off, a[18] B, a[19] K, a[20] n_win, a[21] W;
+//   a[22], a[23] the bits of eff and inv_q as doubles, rounded to fp32 here
+//        as ctypes' c_float rounds a Python float; a[24] the cudaStream_t.
+// nii != 0: (n_win, W) are the windows; ain/aout are (n_win, 8, B) fp32,
+// ckpt is (2, n_win * W / segment_of(W), 8, B) fp32 scratch.  nii == 0:
+// (n_win, W) are the segments the wrapper cut (W = segment_of(n_win * W));
+// ckpt is (2, n_win, 8, B) fp32 scratch, ain/aout unused.
 // idx: null, except in a SISO_FOLD library (nii != 0 only): the
 // (n_win * W,) int32 gather table with values in [0, n_win * W).
-// a_in, b_in, a_out, b_out: null, except in a SISO_BND library: (8, B) fp32
-// each (see Edges), none of them overlapping another operand; off is the
-// chunk's first global row (0 elsewhere) and K the global info length.
+// The edges: null, except in a SISO_BND library: (8, B) fp32 each (see
+// Edges), none of them overlapping another operand; off is the chunk's
+// first global row (0 elsewhere) and K the global info length.
 // Returns the cudaError_t (0 = ok) of the first failing launch.
-extern "C" int turbotpu_siso_launch(
-    int passes, int mode, int chan_type, int ext_type, int nii,
-    const void* ls, const void* lp, const void* la, const void* idx,
-    void* le, const void* ain, void* aout, void* ckpt, const void* a_in,
-    const void* b_in, void* a_out, void* b_out, int off, int B, int K,
-    int n_win, int W, float eff, float inv_q, void* stream) {
-  if (mode != SISO_MODE || chan_type != SISO_CHAN || ext_type != SISO_EXT)
-    return -1;
-  const int n_edges = (a_in != nullptr) + (b_in != nullptr) +
-                      (a_out != nullptr) + (b_out != nullptr);
-  if (passes < PASS1 || passes > (PASS1 | PASS2) ||
-      (idx != nullptr) != FOLD || (FOLD && !nii) ||
-      n_edges != (BND ? 4 : 0) || (!BND && off != 0))
+extern "C" int turbotpu_siso_launch(const int64_t* a) {
+  if (a[1] != SISO_MODE || a[2] != SISO_CHAN || a[3] != SISO_EXT) return -1;
+  const int passes = (int)a[0];
+  const bool nii = a[4] != 0;
+  const Edges e{(const float*)a[13], (const float*)a[14], (float*)a[15],
+                (float*)a[16], (int)a[17]};
+  const int n_edges = (e.a_in != nullptr) + (e.b_in != nullptr) +
+                      (e.a_out != nullptr) + (e.b_out != nullptr);
+  if (passes < PASS1 || passes > (PASS1 | PASS2) || (a[8] != 0) != FOLD ||
+      (FOLD && !nii) || n_edges != (BND ? 4 : 0) || (!BND && e.off != 0))
     return (int)cudaErrorInvalidValue;
-  const Edges e{(const float*)a_in, (const float*)b_in, (float*)a_out,
-                (float*)b_out, off};
+  double eff, inv_q;
+  memcpy(&eff, &a[22], sizeof eff);
+  memcpy(&inv_q, &a[23], sizeof inv_q);
   return (int)launch<StreamType<SISO_CHAN>::type, StreamType<SISO_EXT>::type,
                      SISO_MODE>(
-      nii != 0, ls, lp, la, (const int*)idx, le, (const float*)ain,
-      (float*)aout, (float*)ckpt, B, K, n_win, W, eff, inv_q, e, passes,
-      (cudaStream_t)stream);
+      nii, (const void*)a[5], (const void*)a[6], (const void*)a[7],
+      (const int*)a[8], (void*)a[9], (const float*)a[10], (float*)a[11],
+      (float*)a[12], (int)a[18], (int)a[19], (int)a[20], (int)a[21],
+      (float)eff, (float)inv_q, e, passes, (cudaStream_t)a[24]);
 }

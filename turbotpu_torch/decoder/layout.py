@@ -12,14 +12,13 @@ operations, which gives the same bytes.
 
 On a CUDA tensor a wrapper launches its kernel, or raises for what the
 kernel does not take; it takes the plain version only for tensors on the
-CPU.  `LAYOUT_LAUNCHES` counts the launches of each kernel, by its name in
+CPU.  Each launch is counted in `_device.LAUNCHES` by its kernel's name in
 layout.cu.
 """
 
 from __future__ import annotations
 
 import functools
-import struct
 
 import numpy as np
 import torch
@@ -30,8 +29,8 @@ from ..siso.cuda_kernel import _CHAN_TYPES, _EXT_TYPES, BIG
 from .early_term import _crc_check_matrix_np, make_crc_matrix
 
 TARGET: _build.Target = ("layout", ())
-LAYOUT_LAUNCHES = {"pack_kernel": 0, "unpack_kernel": 0, "exit_kernel": 0,
-                   "exit_close_kernel": 0}
+# layout.cu's kernels, by the names their launches count under
+KERNELS = ("pack_kernel", "unpack_kernel", "exit_kernel", "exit_close_kernel")
 # each C entry takes one pointer to its int64 arguments, the stream last,
 # and the SISO library's type codes (_CHAN_TYPES, _EXT_TYPES)
 _PACK = _build.PackedEntry(TARGET, "turbotpu_pack_streams_launch", 24)
@@ -43,11 +42,6 @@ _F32 = torch.float32
 # first of its tail columns (row K + j holds column off + 2j) and the pad of
 # its rows from K + 3.
 _FORMAT = ((0, 0, BIG), (0, 1, 0.0), (1, 1, 0.0), (1, 0, BIG))
-
-
-def _f64_bits(x: float) -> int:
-    """A Python float's bits, for an int64 argument block."""
-    return struct.unpack("<q", struct.pack("<d", x))[0]
 
 
 def _sys_gather(ls: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
@@ -89,13 +83,12 @@ def _pack_launch(ls, lp1, lp2, tail1, tail2, KTp: int, dtype: torch.dtype):
                    *(x.data_ptr() for x in (ls, lp1, lp2)),
                    *(tails[tail].data_ptr() for tail, _, _ in _FORMAT),
                    *(off for _, off, _ in _FORMAT),
-                   *(_f64_bits(pad) for _, _, pad in _FORMAT),
+                   *(_build.f64_bits(pad) for _, _, pad in _FORMAT),
                    *(x.data_ptr() for x in (ls1, lp1s, lp2s, ls2)),
-                   B, K, KTp, _CHAN_TYPES[dtype])
+                   B, K, KTp, _CHAN_TYPES[dtype], count=("pack_kernel",))
     if rc != 0:
         raise RuntimeError(f"pack_streams launch failed: cudaError {rc} "
                            f"(B={B}, K={K}, KTp={KTp}, {dtype})")
-    LAYOUT_LAUNCHES["pack_kernel"] += 1
     return ls1, lp1s, ls2, lp2s
 
 
@@ -204,11 +197,11 @@ def assemble_outputs(ls1, le1, le21, K: int, deq: float, ext: torch.dtype):
         return hard, L
     rc = launch_on(dev.index, _ASSEMBLE,
                    *(x.data_ptr() for x in (ls1, le1, le21, L, hard)), B, K,
-                   _f64_bits(deq), _CHAN_TYPES[ls1.dtype], _EXT_TYPES[ext])
+                   _build.f64_bits(deq), _CHAN_TYPES[ls1.dtype],
+                   _EXT_TYPES[ext], count=("unpack_kernel",))
     if rc != 0:
         raise RuntimeError(f"assemble_outputs launch failed: cudaError {rc} "
                            f"(B={B}, K={K}, {ls1.dtype}, {ext})")
-    LAYOUT_LAUNCHES["unpack_kernel"] += 1
     return hard, L
 
 
@@ -335,10 +328,8 @@ def _exit_launch(ls1, le1, le21, le1_new, le21_nat, le21_new, done, iters,
                    *(x.data_ptr() for x in (ls1, le1_new, le21_nat, le1,
                                             le21, le21_new, done, iters,
                                             masks, synd, flag)),
-                   B, K, T, _f64_bits(deq), _CHAN_TYPES[ls1.dtype],
-                   _EXT_TYPES[ext])
+                   B, K, T, _build.f64_bits(deq), _CHAN_TYPES[ls1.dtype],
+                   _EXT_TYPES[ext], count=("exit_kernel", "exit_close_kernel"))
     if rc != 0:
         raise RuntimeError(f"crc_exit launch failed: cudaError {rc} "
                            f"(B={B}, K={K}, KTp={T}, {ls1.dtype}, {ext})")
-    LAYOUT_LAUNCHES["exit_kernel"] += 1
-    LAYOUT_LAUNCHES["exit_close_kernel"] += 1

@@ -32,8 +32,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..siso.cuda_kernel import (FP8, _round_up, launch_count,
-                                siso_cells, window_len)
+from ..siso.cuda_kernel import (FP8, _round_up, kernel_name, siso_cells,
+                                window_len)
 from .layout import (assemble_outputs, crc_exit, crc_exit_scratch, full_llr,
                      pack_streams)
 from .turbo import DecoderConfig
@@ -43,9 +43,9 @@ _STREAM_TYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 # SISO1 calls the early-exit loop launched ahead of a read and dropped because
-# every codeword was done, by the launch counter they added to (the counts in
-# siso/cuda_kernel.py include them): the kernel launches that did an
-# iteration's work are the counts less these.
+# every codeword was done, by the name they were counted under
+# (`kernel_name`; `_device.LAUNCHES` includes them): the kernel launches that
+# did an iteration's work are the counts less these.
 DROPPED = {}
 
 
@@ -257,8 +257,7 @@ def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
             all_done = bool(flag)
         if all_done:
             if first is not None and ready is not None:
-                _, name = launch_count(cfg.nii, cfg.mode, fold, False, dt,
-                                       dte)
+                name = kernel_name(cfg.nii, cfg.mode, fold, False, dt, dte)
                 DROPPED[name] = DROPPED.get(name, 0) + 1
             break
     return outputs(le21, le1, iters)

@@ -51,8 +51,6 @@ _ERRORS = {1: "a shard's ring neighbours never signalled the barrier",
            2: "an incoming payload never landed"}
 _ENTRY = _build.PackedEntry(TARGET, "turbotpu_ring_xch_launch", 9)
 
-LAUNCHES = {"ring_xch": 0}
-
 
 def boundary_exchange_plain(fwd: list, bwd: list, n_seq: int
                             ) -> tuple[list, list]:
@@ -132,12 +130,11 @@ def launch(ring: RingBuffers, n_seq: int) -> None:
     ring's error flag, which `check` reads."""
     rc = launch_on(ring.table.device.index, _ENTRY, ring.table.data_ptr(),
                    ring.flags.data_ptr(), ring.n, n_seq, ring.ctas,
-                   ring.n_vec, THREADS, TIMEOUT_NS)
+                   ring.n_vec, THREADS, TIMEOUT_NS, count=("ring_xch",))
     if rc != 0:
         raise RuntimeError(f"ring_xch launch failed: cudaError {rc} "
                            f"({ring.n} shards, rows of {n_seq}, {ring.ctas} "
                            f"CTAs each)")
-    LAUNCHES["ring_xch"] += 1
 
 
 def check(mesh: Mesh) -> None:

@@ -357,7 +357,7 @@ def _decode_seq_sharded_scan(mesh: Mesh, cfg: DecoderConfig):
 
 def _decode_seq_sharded_cells(mesh: Mesh, cfg: DecoderConfig):
     from ..decoder.turbo_cells import DROPPED, _STREAM_TYPES, carry_type
-    from ..siso.cuda_kernel import _e0, launch_count, siso_cells
+    from ..siso.cuda_kernel import _e0, kernel_name, siso_cells
     from . import dma
 
     n_seq = mesh.seq
@@ -615,8 +615,8 @@ def _decode_seq_sharded_cells(mesh: Mesh, cfg: DecoderConfig):
                     undone = int(undone_host)
                 if undone == 0:
                     if not last and ready is not None:
-                        _, name = launch_count(cfg.nii, cfg.mode, False, True,
-                                               dt, dte)
+                        name = kernel_name(cfg.nii, cfg.mode, False, True,
+                                           dt, dte)
                         DROPPED[name] = (DROPPED.get(name, 0)
                                          + n * len(groups))
                     break

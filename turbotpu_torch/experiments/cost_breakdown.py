@@ -26,24 +26,25 @@ otherwise.
         [--b 1024] [--iters 6] [--out FILE]
 
 On a CUDA tensor `issue_rate` launches its kernel or raises; it takes the
-plain version only for a tensor on the CPU.  `LAUNCHES` counts launches.
+plain version only for a tensor on the CPU; it counts its launches in
+`_device.LAUNCHES` as `issue_rate`.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import subprocess
 
 import torch
 
 from .. import _build
-from .._device import resolve_device
+from .._device import launch_on, resolve_device
 from .common import need_card
 
-LAUNCHES = {"issue_rate": 0}
 TARGET: _build.Target = ("issue_rate", ())
+# the kernel's C entry takes one pointer to eight int64 arguments
+_ENTRY = _build.PackedEntry(TARGET, "turbotpu_issue_rate_launch", 8)
 UNROLL = 8           # chain steps per loop trip, as the SISO kernel's blocks
 LANES = (1, 8, 16)
 
@@ -92,16 +93,6 @@ def issue_rate_plain(x: torch.Tensor, lanes: int = 1, n_ops: int = 4096
     return v
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(*TARGET)
-    fn = lib.turbotpu_issue_rate_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, ctypes.c_int64, i, i, i, i, p]
-        fn.restype = i
-    return lib
-
-
 def issue_rate(x: torch.Tensor, lanes: int = 1, n_ops: int = 4096,
                threads: int = 32) -> torch.Tensor:
     """Run `lanes` chains of v = max(v + c, v), c = x / 2, starting at
@@ -124,12 +115,9 @@ def issue_rate(x: torch.Tensor, lanes: int = 1, n_ops: int = 4096,
     out = torch.empty((n, lanes), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
-    fn = _lib().turbotpu_issue_rate_launch
-    with torch.cuda.device(x.device):
-        LAUNCHES["issue_rate"] += 1
-        rc = fn(x.data_ptr(), out.data_ptr(), n, lanes,
-                chain_steps(n_ops, lanes) // UNROLL, -(-n // threads), threads,
-                torch.cuda.current_stream(x.device).cuda_stream)
+    rc = launch_on(x.device.index, _ENTRY, x.data_ptr(), out.data_ptr(), n,
+                   lanes, chain_steps(n_ops, lanes) // UNROLL,
+                   -(-n // threads), threads, count=("issue_rate",))
     if rc != 0:
         raise RuntimeError(f"issue_rate launch failed: cudaError {rc} "
                            f"(n={n}, lanes={lanes}, n_ops={n_ops})")

@@ -13,7 +13,8 @@ itself costs there, which is the budget a folded read has to fit.
     python -m turbotpu_torch.experiments.gather_inkernel [--out FILE]
 
 On a CUDA tensor `row_gather` launches its kernel or raises; it takes the
-plain version only for a tensor on the CPU.  `LAUNCHES` counts launches.
+plain version only for a tensor on the CPU; it counts its launches in
+`_device.LAUNCHES` as `row_gather`.
 """
 
 from __future__ import annotations
@@ -24,10 +25,9 @@ import json
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, _device
 from .._device import launch_on, resolve_device
 
-LAUNCHES = {"row_gather": 0}
 TARGET: _build.Target = ("row_gather", ())
 _ELEMENT_SIZES = (1, 2, 4)
 # the kernel's C entry takes one pointer to six int64 arguments
@@ -65,34 +65,33 @@ def row_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if T == 0 or B == 0:
         return out
     rc = launch_on(dev.index, _ENTRY, src.data_ptr(), idx.data_ptr(),
-                   out.data_ptr(), T, B * src.element_size())
+                   out.data_ptr(), T, B * src.element_size(),
+                   count=("row_gather",))
     if rc != 0:
         raise RuntimeError(f"row_gather launch failed: cudaError {rc} "
                            f"(T={T}, B={B}, {src.dtype})")
-    LAUNCHES["row_gather"] += 1
     return out
 
 
-def graph_ms(fn, n: int, n_replays: int = 5, counts: dict | None = None
-             ) -> float:
+def graph_ms(fn, n: int, n_replays: int = 5) -> float:
     """Device time of one call of `fn`: n calls captured in a CUDA graph,
     replayed `n_replays` times between two CUDA events, per call.  The host
     enqueues one graph per replay, so the time is the device's alone.  The
-    calls made while the graph is captured launch nothing, so they are taken
-    out of the wrapper's launch counts again (`counts`, this module's
-    `LAUNCHES` by default); the replays do not pass through the wrapper and
-    are not counted either."""
-    counts = LAUNCHES if counts is None else counts
+    calls made while the graph is captured launch nothing, so
+    `_device.LAUNCHES` is put back as it was before the capture; the
+    replays do not pass through the wrappers and are not counted either."""
+    counts = _device.LAUNCHES
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):        # warm-up outside the capture
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    counted = dict(counts)
+    counted = counts.copy()
     with torch.cuda.graph(graph):
         for _ in range(n):
             fn()
+    counts.clear()
     counts.update(counted)
     graph.replay()
     torch.cuda.synchronize()

@@ -28,7 +28,6 @@ transmission de-rate-matched at its own redundancy version.
 from __future__ import annotations
 
 import functools
-import struct
 
 import numpy as np
 import torch
@@ -51,7 +50,6 @@ N_RV = 4
 # table entries that are not an index into the received wrap
 NONE, PINNED = -1, -2
 _COMBINE = _build.PackedEntry(TARGET, "turbotpu_harq_combine_launch", 16)
-COMBINE_LAUNCHES = {"combine_kernel": 0}
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,10 +105,6 @@ def combine_plain(streams, llr, table, period, rv, new):
         lo += x.shape[1]
 
 
-def _f64_bits(x: float) -> int:
-    return struct.unpack("<q", struct.pack("<d", x))[0]
-
-
 def combine(streams, llr, table, period, rv, new):
     """Combine one run of block rows into their soft buffers, in place.
 
@@ -149,11 +143,11 @@ def combine(streams, llr, table, period, rv, new):
     rc = launch_on(dev.index, _COMBINE, llr.data_ptr(), rv.data_ptr(),
                    new.data_ptr(), table.data_ptr(),
                    *(x.data_ptr() for x in streams), rows, m, E, period,
-                   bucket, _f64_bits(BIG_LLR))
+                   bucket, _build.f64_bits(BIG_LLR),
+                   count=("combine_kernel",))
     if rc != 0:
         raise RuntimeError(f"harq combine launch failed: cudaError {rc} "
                            f"(rows={rows}, m={m}, E={E}, bucket={bucket})")
-    COMBINE_LAUNCHES["combine_kernel"] += 1
 
 
 class HarqReceiver:

@@ -22,20 +22,20 @@ contracts:
   a-priori mask becomes `row_offset + t < K_real`, with K_real the global
   info length.  Edges are `(8, B)` fp32;
 
-each in the three max* modes of `_mstar`/`_mstar_tree` there.  max-log keeps
-the names above; the linlog and log-MAP instantiations count their
-launches as `siso_nii_linlog`, `siso_exact_linlog`, `siso_nii_fold_linlog`,
+each in the three max* modes of `_mstar`/`_mstar_tree` there.  Launches are
+counted in `_device.LAUNCHES` under `kernel_name`: max-log keeps the names
+above; the linlog and log-MAP instantiations count theirs as
+`siso_nii_linlog`, `siso_exact_linlog`, `siso_nii_fold_linlog`,
 `siso_bnd_nii_linlog`, `siso_bnd_exact_linlog`, and the same with `_logmap`.
 Float8 (e4m3fn) extrinsic streams are libraries of their own, eighteen of
 them (three modes, two channel types, the plain, folded and boundary
-forms), and each counts its launches in `FP8_LAUNCHES` under one name
-(`fp8_name`: `siso_fp8_bf16`, `siso_fp8_fold_f32_linlog`,
-`siso_fp8_bnd_bf16_logmap`, ...), whichever contract of the library ran.
-Every one runs window-parallel, two launches per call, counted once: a beta
-walk beside alpha walks (exact: one over the whole trellis; NII: one per
-window, from its inherited start) that leave checkpoints at segment edges,
-then every segment decoded alone (the boundary forms' outgoing edges come
-from the first and the last segment).
+forms), and each counts its launches under one name (`siso_fp8_bf16`,
+`siso_fp8_fold_f32_linlog`, `siso_fp8_bnd_bf16_logmap`, ...), whichever
+contract of the library ran.  Every one runs window-parallel, two launches
+per call, counted once: a beta walk beside alpha walks (exact: one over the
+whole trellis; NII: one per window, from its inherited start) that leave
+checkpoints at segment edges, then every segment decoded alone (the
+boundary forms' outgoing edges come from the first and the last segment).
 
 Layout.  All streams are time-major `(T, B)` tensors: the same element order
 at each step as the JAX package's `(cells, T, 8, 128)`, without its batch
@@ -46,8 +46,7 @@ ignored (masked in the kernel) but must be finite.  Window checkpoints are
 `(n_win, 8, B)` fp32; slot 0 is never read and never written.
 
 On a CUDA tensor a wrapper launches its kernel or raises; it takes the plain
-version only for a tensor on the CPU.  `LAUNCHES` counts kernel launches,
-`FP8_LAUNCHES` those of the fp8 libraries.
+version only for a tensor on the CPU.
 
 The plain versions (`siso_nii_plain`, `siso_exact_plain`; the folded read is
 `siso_nii_plain(..., gather_idx=idx)`, an `index_select` in front of the
@@ -65,11 +64,12 @@ kernels against, and no yardstick of speed.
 
 from __future__ import annotations
 
-import ctypes
+import functools
 
 import torch
 
 from .. import _build
+from .._device import launch_on
 from ..spec.trellis import TRELLIS
 from .maxstar import LINLOG, LOGMAP, MAXLOG, MODES, maxstar2
 
@@ -77,16 +77,30 @@ BIG = 1e9
 UNROLL = 8           # trellis steps per block; also the renorm cadence
 
 _MODE_CODES = {MAXLOG: 0, LINLOG: 1, LOGMAP: 2}
+_CHAN_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+_EXT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+              torch.float8_e4m3fn: 3}
+FP8 = torch.float8_e4m3fn
+FP8_MAX = 448.0      # e4m3fn's largest finite value; it has no inf
 
 
-def kernel_name(nii: bool, mode: str, fold: bool = False,
-                bnd: bool = False) -> str:
-    """The name a contract/mode instantiation counts its launches under."""
+@functools.lru_cache(maxsize=None)
+def kernel_name(nii: bool, mode: str, fold: bool = False, bnd: bool = False,
+                chan: torch.dtype = torch.float32,
+                ext: torch.dtype = torch.float32) -> str:
+    """The name a SISO call counts its launch under: its contract and mode
+    (`siso_nii`, `siso_exact_linlog`, ...), or with float8 extrinsics its
+    library, one name per (channel type, mode, form) for both contracts
+    (`siso_fp8_bf16`, `siso_fp8_fold_f32_linlog`, ...)."""
     if fold and not nii:
         raise ValueError("the folded read exists for the NII contract only")
     if fold and bnd:
         raise ValueError("the folded read has no boundary form")
-    if bnd:
+    if ext == FP8:
+        form = "_fold" if fold else "_bnd" if bnd else ""
+        ch = {torch.bfloat16: "bf16", torch.float32: "f32"}[chan]
+        base = f"siso_fp8{form}_{ch}"
+    elif bnd:
         base = "siso_bnd_nii" if nii else "siso_bnd_exact"
     else:
         base = "siso_nii_fold" if fold else "siso_nii" if nii else "siso_exact"
@@ -97,47 +111,19 @@ def kernel_name(nii: bool, mode: str, fold: bool = False,
 CONTRACTS = ((True, False), (False, False), (True, True))
 # nii of the two boundary contracts (K4)
 BND_CONTRACTS = (False, True)
-
-LAUNCHES = {kernel_name(nii, mode, fold): 0
-            for mode in (MAXLOG, LINLOG, LOGMAP) for nii, fold in CONTRACTS}
-LAUNCHES.update({kernel_name(nii, mode, bnd=True): 0
-                 for mode in (MAXLOG, LINLOG, LOGMAP) for nii in BND_CONTRACTS})
-
-_CHAN_TYPES = {torch.float32: 0, torch.bfloat16: 1}
-_EXT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
-              torch.float8_e4m3fn: 3}
-FP8 = torch.float8_e4m3fn
-FP8_MAX = 448.0      # e4m3fn's largest finite value; it has no inf
 # (fold, bnd) of the three libraries of each (mode, channel type)
 FORMS = ((False, False), (True, False), (False, True))
 
-
-def fp8_name(chan: torch.dtype, mode: str, fold: bool = False,
-             bnd: bool = False) -> str:
-    """The name a float8-extrinsic library counts its launches under: one
-    per (channel type, mode, form), for both contracts of the plain and the
-    boundary library."""
-    if fold and bnd:
-        raise ValueError("the folded read has no boundary form")
-    form = "_fold" if fold else "_bnd" if bnd else ""
-    ch = {torch.bfloat16: "bf16", torch.float32: "f32"}[chan]
-    base = f"siso_fp8{form}_{ch}"
-    return base if mode == MAXLOG else f"{base}_{mode}"
-
-
-FP8_NAMES = [fp8_name(chan, mode, fold, bnd) for fold, bnd in FORMS
+# the fifteen contract/mode names and the eighteen names of the fp8 libraries
+KERNEL_NAMES = (
+    [kernel_name(nii, mode, fold) for mode in (MAXLOG, LINLOG, LOGMAP)
+     for nii, fold in CONTRACTS]
+    + [kernel_name(nii, mode, bnd=True) for mode in (MAXLOG, LINLOG, LOGMAP)
+       for nii in BND_CONTRACTS])
+FP8_NAMES = [kernel_name(True, mode, fold, bnd, chan, FP8)
+             for fold, bnd in FORMS
              for chan in (torch.bfloat16, torch.float32)
              for mode in (MAXLOG, LINLOG, LOGMAP)]
-# launch counts of the float8-extrinsic libraries, one per library
-FP8_LAUNCHES = {name: 0 for name in FP8_NAMES}
-
-
-def launch_count(nii: bool, mode: str, fold: bool, bnd: bool,
-                 chan: torch.dtype, ext: torch.dtype) -> tuple[dict, str]:
-    """The counter one call of the kernels adds to: (its dict, its key)."""
-    if ext == FP8:
-        return FP8_LAUNCHES, fp8_name(chan, mode, fold, bnd)
-    return LAUNCHES, kernel_name(nii, mode, fold, bnd)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -372,17 +358,14 @@ def build_targets() -> list[_build.Target]:
             for c in _CHAN_TYPES.values() for e in _EXT_TYPES.values()]
 
 
-def _launch_fn(mode: str, chan: torch.dtype, ext: torch.dtype,
-               fold: bool = False, bnd: bool = False):
-    """The C entry of one variant (`turbotpu_siso_launch`)."""
-    lib = _build.load(*_target(_MODE_CODES[mode], _CHAN_TYPES[chan],
-                               _EXT_TYPES[ext], fold, bnd))
-    fn = lib.turbotpu_siso_launch
-    if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [i] * 5 + [p] * 12 + [i] * 5 + [f, f, p]
-        fn.restype = ctypes.c_int
-    return fn
+@functools.lru_cache(maxsize=None)
+def _entry(mode: str, chan: torch.dtype, ext: torch.dtype,
+           fold: bool = False, bnd: bool = False) -> _build.PackedEntry:
+    """The C entry of one variant (`turbotpu_siso_launch`: one pointer to
+    25 int64 arguments, the stream last)."""
+    return _build.PackedEntry(
+        _target(_MODE_CODES[mode], _CHAN_TYPES[chan], _EXT_TYPES[ext], fold,
+                bnd), "turbotpu_siso_launch", 25)
 
 
 PASS1, PASS2 = 1, 2   # the `passes` of the C entry: one of them, or both
@@ -403,7 +386,7 @@ def _scratch(T, B, W, nii, dev):
 
 
 def _ptr(t):
-    return None if t is None else t.data_ptr()
+    return 0 if t is None else t.data_ptr()
 
 
 def _launcher(ls, lp, la, ain, K_real, W, eff, inv_q, mode, idx=None,
@@ -412,8 +395,9 @@ def _launcher(ls, lp, la, ain, K_real, W, eff, inv_q, mode, idx=None,
     with idx its folded form) or exact (ain None) kernel of `mode` on CUDA
     tensors; with edges = (a_in, b_in) its boundary form, which writes its
     outgoing edges into edges_out where given.  Returns (run, outputs):
-    run(passes) launches the passes on them and raises if a launch fails;
-    outputs is (le, aout, a_edge, b_edge) as _siso_plain returns them."""
+    run(passes, count=()) launches the passes on them, counted under the
+    names in `count` (`launch_on`), and raises if a launch fails; outputs
+    is (le, aout, a_edge, b_edge) as _siso_plain returns them."""
     T, B = ls.shape
     dev = ls.device
     f32 = torch.float32
@@ -425,19 +409,19 @@ def _launcher(ls, lp, la, ain, K_real, W, eff, inv_q, mode, idx=None,
         a_edge, b_edge = edges_out or (
             torch.empty((8, B), dtype=f32, device=dev),
             torch.empty((8, B), dtype=f32, device=dev))
-    fn = _launch_fn(mode, ls.dtype, la.dtype, fold, bnd)
+    entry = _entry(mode, ls.dtype, la.dtype, fold, bnd)
     head = (_MODE_CODES[mode], _CHAN_TYPES[ls.dtype], _EXT_TYPES[la.dtype],
             int(nii), ls.data_ptr(), lp.data_ptr(), la.data_ptr(), _ptr(idx),
             le.data_ptr(), _ptr(ain), _ptr(aout))
     tail = (*((edges[0].data_ptr(), edges[1].data_ptr(), a_edge.data_ptr(),
-               b_edge.data_ptr()) if bnd else (None,) * 4),
-            row_offset, B, K_real, n_win, Wk, eff, inv_q)
+               b_edge.data_ptr()) if bnd else (0,) * 4),
+            row_offset, B, K_real, n_win, Wk, _build.f64_bits(eff),
+            _build.f64_bits(inv_q))
 
-    def run(passes):
+    def run(passes, count=()):
         # ck is read here, so it lives as long as run: it is no output
-        with torch.cuda.device(dev):
-            rc = fn(passes, *head, ck.data_ptr(), *tail,
-                    torch.cuda.current_stream(dev).cuda_stream)
+        rc = launch_on(dev.index, entry, passes, *head, ck.data_ptr(), *tail,
+                       count=count)
         if rc != 0:
             raise RuntimeError(
                 f"siso kernel launch failed (passes {passes}): cudaError {rc} "
@@ -453,7 +437,7 @@ def pass_launchers(ls, lp, la, K_real: int, mode: str, scale: float = 1.0,
     one pass each on the same operands, outputs and scratch, to time them
     apart.  Both passes run once here first, so the checkpoints that pass 2
     reads hold this call's values.  These launches are a measurement, not
-    the decoder's path: they are not counted in `LAUNCHES`."""
+    the decoder's path: they are not counted in `_device.LAUNCHES`."""
     if ls.device.type != "cuda":
         raise ValueError("pass_launchers times the kernel: CUDA tensors only")
     run, _ = _launcher(*_operands(ls, lp, la, K_real, mode, scale,
@@ -608,11 +592,10 @@ def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
             b_edge = edges_out[1].copy_(b_edge)
     else:
         run, (le, ck, a_edge, b_edge) = _launcher(*ops)
-        counts, name = launch_count(ain is not None, mode,
-                                    gather_idx is not None, edges is not None,
-                                    ls.dtype, la.dtype)
-        counts[name] += 1
-        run(PASS1 | PASS2)
+        run(PASS1 | PASS2, (kernel_name(ain is not None, mode,
+                                        gather_idx is not None,
+                                        edges is not None, ls.dtype,
+                                        la.dtype),))
     if boundaries is not None:
         return le, a_edge, b_edge
     if nii_boundaries is not None:
