@@ -180,8 +180,10 @@ def test_fold_decode_launches_only_the_folded_contract(monkeypatch):
 
 @pytest.mark.parametrize("how", ["perm_b", "group_tables", "exact"])
 def test_fold_is_ignored_where_the_jax_code_ignores_it(how, monkeypatch):
-    """(d) With per-codeword tables, grouped tables or the exact contract
-    the option is ignored and the decode is the unfolded one."""
+    """(d) With per-codeword tables, grouped tables of more than one size
+    or the exact contract the option is ignored and the decode is the
+    unfolded one.  (Grouped tables of one size are shared and fold:
+    test_torch_mixed.py::test_single_size_grouped_batch_folds.)"""
     from turbotpu_torch.decoder import turbo_cells
     real = turbo_cells.siso_cells
 
@@ -192,7 +194,8 @@ def test_fold_is_ignored_where_the_jax_code_ignores_it(how, monkeypatch):
     K, B = 168, 3
     cfg = DecoderConfig(**dict(FOLD, siso="cuda", nii=how != "exact"))
     inputs = make_decode_inputs(K, B, seed=5, ebn0_db=2.0)
-    pg, ig, gid = grouped_perm_tables([K] * B, K)
+    pg, ig, gid = grouped_perm_tables(
+        [40, K, K] if how == "group_tables" else [K] * B, K)
     kw = {"perm_b": dict(perm_b=pg[gid], inv_b=ig[gid]),
           "group_tables": dict(group_tables=(pg, ig, gid)), "exact": {}}[how]
     got = turbo_decode(*inputs, cfg, device="cpu", **kw)

@@ -21,7 +21,8 @@ import torch
 from perfbench.harness import gen, harq_gen
 from perfbench.reference import harq_ref, turbo_ref
 from turbotpu_torch import _device, harq
-from turbotpu_torch.decoder.turbo import DecoderConfig
+from turbotpu_torch.decoder import turbo_cells
+from turbotpu_torch.decoder.turbo import DecoderConfig, turbo_decode
 from turbotpu_torch.harness import tb as ttb
 from turbotpu_torch.spec.crc import CRC24A_POLY, CRC24B_POLY
 from turbotpu_torch.spec.rate_match import select_indices
@@ -377,3 +378,44 @@ def test_the_kernel_equals_its_plain_version(card, shape):
         assert _device.LAUNCHES["combine_kernel"] == before + 1
         for a, b in zip(cpu, dev):
             assert torch.equal(a.view(torch.int32), b.cpu().view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_a_single_size_batch_decodes_as_its_per_codeword_form(card):
+    """The cells' transport block at a reduced batch: 13 blocks of K=5824 x
+    16 transport blocks, bf16 + int8, crc.  Its one group's shared-table
+    decode gives the bytes of the per-codeword form of the same tables, and
+    `receive` (a first transmission, then rv 2) gives the per-codeword
+    decode of its buffers."""
+    A, G, Qm, n = 75376, 86400, 6, 16
+    cfg = _decoder(A, W=256)
+    _, layout = gen.block_layout(A, G, Qm)
+    g = torch.Generator(device=card).manual_seed(5)
+    _, blocks = harq_gen.encode(g, n, A, G, Qm)
+    rx = harq.HarqReceiver(A, G, Qm, n, cfg, processes=1, device=card)
+    pg, ig, gid = rx.group_tables
+    assert pg.shape == (1, 5824) and len(gid) == 13 * n
+    slots = torch.arange(n, device=card)
+    es = harq_gen.esn0_db(3.8, A, G)
+    for i, v in enumerate((0, 2)):
+        rv = torch.full((n,), v, dtype=torch.int64, device=card)
+        llrs = harq_gen.transmit(g, blocks, layout, slots, rv, es)
+        forms = dict(turbo_cells.TABLE_FORMS)
+        out = rx.receive(0, llrs, rv, torch.full((n,), i == 0, device=card))
+        grouped = turbo_decode(*rx.buffers[0], cfg,
+                               group_tables=rx.group_tables, device=card)
+        assert turbo_cells.TABLE_FORMS["shared"] == forms["shared"] + 2
+        hard, iters, L = turbo_decode(*rx.buffers[0], cfg, perm_b=pg[gid],
+                                      inv_b=ig[gid], device=card)
+        assert (turbo_cells.TABLE_FORMS["per_codeword"]
+                == forms["per_codeword"] + 1)
+        assert torch.equal(grouped[0], hard) and torch.equal(grouped[1],
+                                                             iters)
+        assert torch.equal(grouped[2].view(torch.int32), L.view(torch.int32))
+        tb = torch.cat([hard[a:b, lo:lo + take]
+                        for a, b, lo, take in rx.cuts], dim=1)
+        assert torch.equal(out["hard"], tb)
+        assert torch.equal(out["iters"], iters)
+        assert torch.equal(out["L"].view(torch.int32), L.view(torch.int32))
+        if i == 0:
+            assert int(iters.min()) < cfg.n_iters

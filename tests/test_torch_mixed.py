@@ -22,6 +22,8 @@ import turbotpu_torch.decoder.bucketing as tbucket
 import turbotpu_torch.golden.numpy_ref as tref
 from turbotpu_torch import turbo_decode
 from turbotpu_torch.convert import config_from_dict, tables_to_torch
+from turbotpu_torch.decoder import turbo_cells
+from turbotpu_torch.decoder.turbo import DecoderConfig
 from turbotpu_torch.decoder.turbo_cells import time_major_index
 from turbotpu_torch.spec.crc import CRC24A_POLY, crc_attach
 
@@ -29,15 +31,15 @@ BUCKET, SIZES, B = 320, (40, 168, 320), 12
 KS = [SIZES[i % 3] for i in range(B)]
 
 
-def mixed_frames(interleaver, seed, ebn0_db):
-    """B true-K codewords (sizes cycling over SIZES, CRC-24A inside) at their
-    own mother rate over BPSK/AWGN, embedded in the bucket: systematic
-    fillers +1e9, parity fillers 0.  Returns the five LLR streams and the
-    embedded transmitted bits, numpy."""
+def mixed_frames(interleaver, seed, ebn0_db, Ks=KS):
+    """len(Ks) true-K codewords (sizes Ks, by default cycling over SIZES,
+    CRC-24A inside) at their own mother rate over BPSK/AWGN, embedded in the
+    bucket: systematic fillers +1e9, parity fillers 0.  Returns the five LLR
+    streams and the embedded transmitted bits, numpy."""
     rng = np.random.default_rng(seed)
     cfg = JaxConfig(K=BUCKET, interleaver=interleaver)
     cols = [[] for _ in range(6)]
-    for K in KS:
+    for K in Ks:
         bits = crc_attach(rng.integers(0, 2, K - 24).astype(np.int8),
                           CRC24A_POLY)
         enc = tref.turbo_encode(bits, dataclasses.replace(cfg, K=K).perm())
@@ -103,26 +105,46 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_mixed_decode_matches_reference(case):
+# one size a batch: the bucket itself (F = 0) or a smaller block behind F
+# fillers
+SINGLE = {"bucket": BUCKET, "smaller": 168}
+
+# every case on the mixed batch (G = 3), and on a batch of each single size
+# (G = 1), which the port decodes through one shared table
+MIXED_OR_SINGLE = (
+    [pytest.param(case, KS, id=case) for case in CASES]
+    + [pytest.param(case, [K] * B, id=f"{case}-{size}")
+       for case in CASES for size, K in SINGLE.items()])
+
+
+@pytest.mark.parametrize("case, Ks", MIXED_OR_SINGLE)
+def test_mixed_decode_matches_reference(case, Ks):
     """Hard bits and iteration counts equal to the JAX package's grouped
     decode, L within 1e-4 (real positions; filler positions carry the 1e9
     systematic LLR, compared relatively); the port's grouped and
-    per-codeword call forms are bit-identical to each other."""
+    per-codeword call forms are bit-identical to each other.  On the kernel
+    path the grouped decode gathers per codeword for the mixed batch and
+    through one shared table for a single size."""
     cfg_kw, ebn0 = CASES[case]
     jcfg = JaxConfig(K=BUCKET, **cfg_kw)
     tcfg = config_from_dict(dataclasses.asdict(jcfg))
-    streams, bits = mixed_frames(jcfg.interleaver, seed=len(case), ebn0_db=ebn0)
-    tables = jbucket.grouped_perm_tables(KS, BUCKET, jcfg.interleaver)
+    streams, bits = mixed_frames(jcfg.interleaver, seed=len(case),
+                                 ebn0_db=ebn0, Ks=Ks)
+    tables = jbucket.grouped_perm_tables(Ks, BUCKET, jcfg.interleaver)
     hj, ij, Lj = jax_decode(*[jnp.asarray(a) for a in streams], jcfg,
                             group_tables=tuple(jnp.asarray(t) for t in tables))
+    forms = dict(turbo_cells.TABLE_FORMS)
     ht, it, Lt = turbo_decode(*streams, tcfg, group_tables=tables,
                               device="cpu")
+    if tcfg.siso == "cuda":
+        ran = "shared" if len(set(Ks)) == 1 else "per_codeword"
+        assert turbo_cells.TABLE_FORMS == {
+            k: v + (k == ran) for k, v in forms.items()}
     np.testing.assert_array_equal(ht.numpy(), np.asarray(hj))
     np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
     np.testing.assert_allclose(Lt.numpy(), np.asarray(Lj), atol=1e-4,
                                rtol=1e-6)
-    real = np.arange(BUCKET)[None, :] >= (BUCKET - np.asarray(KS))[:, None]
+    real = np.arange(BUCKET)[None, :] >= (BUCKET - np.asarray(Ks))[:, None]
     # the decode is a real one: most frames come out right, fillers are zero
     assert ((ht.numpy() != bits) & real).any(axis=1).mean() < 0.5
     assert not ht.numpy()[~real].any()
@@ -130,10 +152,113 @@ def test_mixed_decode_matches_reference(case):
         assert it.numpy().min() < jcfg.n_iters
 
     pg, ig, gid = tables_to_torch(tbucket.grouped_perm_tables(
-        KS, BUCKET, jcfg.interleaver))
+        Ks, BUCKET, jcfg.interleaver))
     hb, ib, Lb = turbo_decode(*streams, tcfg, perm_b=pg[gid], inv_b=ig[gid],
                               device="cpu")
     assert torch.equal(hb, ht) and torch.equal(ib, it) and torch.equal(Lb, Lt)
+
+
+def _single_size_config(interleaver, early_term, **kw):
+    """The benchmark cells' decoder on the port's kernel path at the
+    bucket."""
+    return DecoderConfig(
+        K=BUCKET, n_iters=4, mode="maxlog", ext_scale=0.75, siso="cuda",
+        io_dtype="bfloat16", ext_dtype="int8", ext_qscale=0.25, nii=True,
+        window=64, interleaver=interleaver, early_term=early_term, **kw)
+
+
+def _decode_counted(streams, cfg, **tables):
+    """turbo_decode on the CPU, and the table form its gathers ran."""
+    forms = dict(turbo_cells.TABLE_FORMS)
+    out = turbo_decode(*streams, cfg, device="cpu", **tables)
+    ran = [k for k, v in turbo_cells.TABLE_FORMS.items() if v != forms[k]]
+    assert len(ran) == 1 and turbo_cells.TABLE_FORMS[ran[0]] == forms[ran[0]] + 1
+    return out, ran[0]
+
+
+def _equal(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("early_term", ["none", "crc"])
+@pytest.mark.parametrize("interleaver", ["lte", "umts"])
+@pytest.mark.parametrize("size", sorted(SINGLE))
+def test_single_size_grouped_batch_gathers_through_one_shared_table(
+        size, interleaver, early_term):
+    """A grouped batch of one block size (G = 1) decodes through the
+    group's own row as one shared table: hard bits, iterations and L equal
+    to the per-codeword form of the same tables, and at F = 0 to the
+    table-less decode."""
+    K = SINGLE[size]
+    Ks = [K] * B
+    streams, bits = mixed_frames(interleaver, seed=K + len(early_term),
+                                 ebn0_db=2.0, Ks=Ks)
+    cfg = _single_size_config(interleaver, early_term)
+    tables = tbucket.grouped_perm_tables(Ks, BUCKET, interleaver)
+    assert len(tables[0]) == 1
+    got, form = _decode_counted(streams, cfg, group_tables=tables)
+    assert form == "shared"
+    pg, ig, gid = tables_to_torch(tables)
+    want, form = _decode_counted(streams, cfg, perm_b=pg[gid], inv_b=ig[gid])
+    assert form == "per_codeword"
+    _equal(got, want)
+    if K == BUCKET:
+        plain, form = _decode_counted(streams, cfg)
+        assert form == "shared"
+        _equal(got, plain)
+    else:
+        # the group's row is not the configuration's table
+        assert not np.array_equal(tables[0][0], cfg.perm())
+    hard, iters, _ = got
+    real = np.arange(BUCKET) >= BUCKET - K
+    assert ((hard.numpy() != bits)[:, real]).any(axis=1).mean() < 0.5
+    assert not hard.numpy()[:, ~real].any()
+    if early_term == "crc":
+        assert int(iters.min()) < cfg.n_iters
+
+
+@pytest.mark.parametrize("interleaver", ["lte", "umts"])
+def test_single_size_grouped_batch_on_the_generic_loop(interleaver):
+    """The generic loop (siso="scan") takes the same shared row: a grouped
+    batch of blocks smaller than the bucket equals its per-codeword form."""
+    Ks = [SINGLE["smaller"]] * 4
+    streams, _ = mixed_frames(interleaver, seed=3, ebn0_db=2.0, Ks=Ks)
+    cfg = DecoderConfig(K=BUCKET, n_iters=3, mode="maxlog",
+                        interleaver=interleaver, early_term="crc")
+    tables = tbucket.grouped_perm_tables(Ks, BUCKET, interleaver)
+    pg, ig, gid = tables_to_torch(tables)
+    _equal(turbo_decode(*streams, cfg, group_tables=tables, device="cpu"),
+           turbo_decode(*streams, cfg, perm_b=pg[gid], inv_b=ig[gid],
+                        device="cpu"))
+
+
+@pytest.mark.parametrize("early_term", ["none", "crc"])
+def test_single_size_grouped_batch_folds(early_term, monkeypatch):
+    """fold_gather applies to a G = 1 grouped batch (its tables are
+    shared): every SISO call reads its a-priori through a table, and the
+    outputs are the unfolded decode's."""
+    Ks = [SINGLE["smaller"]] * B
+    streams, _ = mixed_frames("lte", seed=5, ebn0_db=2.0, Ks=Ks)
+    tables = tbucket.grouped_perm_tables(Ks, BUCKET, "lte")
+    folds = []
+
+    def siso_cells(*args, gather_idx=None, **kw):
+        folds.append(gather_idx is not None)
+        return siso_cells_of_the_loop(*args, gather_idx=gather_idx, **kw)
+
+    siso_cells_of_the_loop = turbo_cells.siso_cells
+    monkeypatch.setattr(turbo_cells, "siso_cells", siso_cells)
+    folded, form = _decode_counted(
+        streams, _single_size_config("lte", early_term, fold_gather=True),
+        group_tables=tables)
+    assert form == "shared" and folds and all(folds)
+    folds.clear()
+    unfolded, _ = _decode_counted(streams,
+                                  _single_size_config("lte", early_term),
+                                  group_tables=tables)
+    assert folds and not any(folds)
+    _equal(folded, unfolded)
 
 
 def test_mixed_table_arguments_are_checked():
@@ -148,6 +273,10 @@ def test_mixed_table_arguments_are_checked():
                      device="cpu")
     with pytest.raises(ValueError, match="per-codeword tables"):
         turbo_decode(*streams, cfg, perm_b=pb[:3], inv_b=ib[:3], device="cpu")
+    pg, ig, gid = tbucket.grouped_perm_tables([BUCKET] * B, BUCKET)
+    for one in ((pg, ig, gid[:3]), (pg[:, :40], ig, gid)):
+        with pytest.raises(ValueError, match="one group's tables"):
+            turbo_decode(*streams, cfg, group_tables=one, device="cpu")
 
 
 def test_decode_mixed_buckets_match_reference():

@@ -132,22 +132,19 @@ def turbo_decode(ls, lp1, lp2, tail1, tail2, cfg: DecoderConfig,
 
     group_tables: (perm_g (G, K), inv_g (G, K), gid (B,)) from
     bucketing.grouped_perm_tables, the same decode for a batch with few
-    distinct sizes.  Mutually exclusive with perm_b/inv_b.  Both forms run
-    one per-codeword gather underneath and give identical results.
+    distinct sizes.  Mutually exclusive with perm_b/inv_b.  The table form
+    is resolved here, from the tables' shapes alone: a single group (G = 1)
+    gathers through its own row as one shared (K,) table, which is the
+    configuration's table when the group fills the bucket; more groups run
+    one per-codeword gather through perm_g[gid].  Every form gives
+    identical results.
     """
     dev = resolve_device(device)
     if (perm_b is None) != (inv_b is None):
         raise ValueError("perm_b and inv_b come as a pair")
-    if group_tables is not None:
-        if perm_b is not None:
-            raise ValueError("group_tables and perm_b/inv_b are mutually "
-                             "exclusive")
-        perm_g, inv_g, gid = (torch.as_tensor(x).to(dev, torch.long)
-                              for x in group_tables)
-        perm_b, inv_b = perm_g[gid], inv_g[gid]
-    elif perm_b is not None:
-        perm_b, inv_b = (torch.as_tensor(x).to(dev, torch.long)
-                         for x in (perm_b, inv_b))
+    if group_tables is not None and perm_b is not None:
+        raise ValueError("group_tables and perm_b/inv_b are mutually "
+                         "exclusive")
     f32 = torch.float32
     ls, lp1, lp2, tail1, tail2 = (
         torch.as_tensor(x).to(device=dev, dtype=f32)
@@ -155,34 +152,54 @@ def turbo_decode(ls, lp1, lp2, tail1, tail2, cfg: DecoderConfig,
     B, K = ls.shape
     if K != cfg.K:
         raise ValueError(f"ls has K={K}, the configuration K={cfg.K}")
-    if perm_b is not None and (perm_b.shape != (B, K) or inv_b.shape != (B, K)):
-        raise ValueError(f"per-codeword tables must be {(B, K)}, got "
-                         f"{tuple(perm_b.shape)} and {tuple(inv_b.shape)}")
+    long = lambda x: torch.as_tensor(x).to(dev, torch.long)
+    # The gathers' tables: None (the configuration's), a shared (K,) pair or
+    # a per-codeword (B, K) pair.
+    perm = inv = None
+    if group_tables is not None:
+        perm_g, inv_g, gid = map(long, group_tables)
+        if perm_g.shape[0] == 1:
+            if perm_g.shape != (1, K) or inv_g.shape != (1, K) \
+                    or gid.shape != (B,):
+                raise ValueError(
+                    f"one group's tables must be {(1, K)} with gid {(B,)}, "
+                    f"got {tuple(perm_g.shape)}, {tuple(inv_g.shape)} and "
+                    f"{tuple(gid.shape)}")
+            perm, inv = perm_g[0], inv_g[0]
+        else:
+            perm_b, inv_b = perm_g[gid], inv_g[gid]
+    if perm_b is not None:
+        perm, inv = long(perm_b), long(inv_b)
+        if perm.shape != (B, K) or inv.shape != (B, K):
+            raise ValueError(f"per-codeword tables must be {(B, K)}, got "
+                             f"{tuple(perm.shape)} and {tuple(inv.shape)}")
     with record_function("turbo.decode"):
         if cfg.siso == "cuda":
             from .turbo_cells import turbo_decode_cells
             return turbo_decode_cells(ls, lp1, lp2, tail1, tail2, cfg,
-                                      perm_b=perm_b, inv_b=inv_b)
-        return _decode_generic(ls, lp1, lp2, tail1, tail2, cfg, perm_b,
-                               inv_b)
+                                      perm=perm, inv=inv)
+        return _decode_generic(ls, lp1, lp2, tail1, tail2, cfg, perm, inv)
 
 
-def _decode_generic(ls, lp1, lp2, tail1, tail2, cfg, perm_b, inv_b):
+def _decode_generic(ls, lp1, lp2, tail1, tail2, cfg, perm=None, inv=None):
     """The loop around a batch-major SISO function (every siso but
-    "cuda"), on the device the tensors lie on."""
+    "cuda"), on the device the tensors lie on.  perm / inv: int64 tables
+    on that device, shared (K,) or per codeword (B, K); None takes the
+    configuration's."""
     dev = ls.device
     B, K = ls.shape
     siso = get_siso(cfg)
     scale = cfg.resolved_ext_scale()
 
-    if perm_b is None:
+    if perm is None:
         perm = torch.from_numpy(cfg.perm()).to(dev, torch.long)
         inv = torch.from_numpy(cfg.inv()).to(dev, torch.long)
+    if perm.dim() == 1:
         g_perm = lambda x: x[:, perm]
         g_inv = lambda x: x[:, inv]
     else:
-        g_perm = lambda x: torch.gather(x, 1, perm_b)
-        g_inv = lambda x: torch.gather(x, 1, inv_b)
+        g_perm = lambda x: torch.gather(x, 1, perm)
+        g_inv = lambda x: torch.gather(x, 1, inv)
 
     ls1 = torch.cat([ls, tail1[:, 0::2]], dim=1)
     lp1f = torch.cat([lp1, tail1[:, 1::2]], dim=1)

@@ -3,13 +3,18 @@
 Counterpart of turbotpu/decoder/turbo_cells.py.  Every per-iteration tensor
 stays in the kernel's time-major (T, B) layout, so the hot loop runs without
 a transpose, and the kernel forms the branch metrics itself: the only
-per-iteration work outside it is the extrinsic interleave gather
-(`index_select` along time, or for a mixed-K batch one `torch.gather` along
-time through a per-codeword `(KTp, B)` index) and the early-termination
-bookkeeping (under `crc` one pass, two launches on the card: layout.py's
-`crc_exit`).  Channel-LLR packing and the output assembly cross layouts
-once each, one kernel launch each on the card (layout.py), inside the
-ranges `turbo.pack` and `turbo.unpack`.
+per-iteration work outside it is the extrinsic interleave gather and the
+early-termination bookkeeping (under `crc` one pass, two launches on the
+card: layout.py's `crc_exit`).  Channel-LLR packing and the output assembly
+cross layouts once each, one kernel launch each on the card (layout.py),
+inside the ranges `turbo.pack` and `turbo.unpack`.
+
+The gathers run in one of two table forms, counted in `TABLE_FORMS`:
+`shared`, one (KTp,) table for every codeword, read by `index_select` along
+time (the configuration's table, or a single-size grouped batch's own
+row); `per_codeword`, one `torch.gather` along time through a (KTp, B)
+int64 index, for a batch that really mixes sizes.  turbo_decode resolves
+the form from the tables' shapes and passes the tables as `perm`/`inv`.
 
 With `cfg.fold_gather` (NII, shared interleaver table) the gathers leave the
 loop too: each SISO reads the other's raw extrinsic output through its own
@@ -48,6 +53,10 @@ _STREAM_TYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 # did an iteration's work are the counts less these.
 DROPPED = {}
 
+# Decodes by the table form their gathers ran through: "shared" (one (KTp,)
+# table, `index_select`) or "per_codeword" (a (KTp, B) index, `torch.gather`).
+TABLE_FORMS = {"shared": 0, "per_codeword": 0}
+
 
 def carry_type(dte: torch.dtype) -> torch.dtype:
     """The type the loops carry an extrinsic stream of type `dte` in:
@@ -68,16 +77,20 @@ def time_major_index(tab: torch.Tensor, KTp: int) -> torch.Tensor:
 def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
                        tail1: torch.Tensor, tail2: torch.Tensor,
                        cfg: DecoderConfig,
-                       perm_b: torch.Tensor | None = None,
-                       inv_b: torch.Tensor | None = None):
+                       perm: torch.Tensor | None = None,
+                       inv: torch.Tensor | None = None):
     """Same contract as decoder.turbo.turbo_decode for fp32 (B, K) / (B, 6)
     tensors on one device, kernel hot loop.
 
-    perm_b / inv_b: optional per-codeword (B, K) int64 embedded interleaver
-    tables of a mixed-K batch (bucketing.embedded_perm_tables; turbo_decode
-    expands grouped tables to this form).  The extrinsic exchange is then
-    out[t, b] = x[index[t, b], b]: in the time-major layout the 32 codewords
-    of a warp read neighbouring addresses wherever they share a block size.
+    perm / inv: optional int64 interleaver tables on the device, in place
+    of cfg.perm() / cfg.inv() (which are built on the host and copied):
+    shared (K,), a single-size grouped batch's own row, extended by the
+    identity on the device; or per codeword (B, K), the embedded tables of
+    a mixed-K batch (bucketing.embedded_perm_tables; turbo_decode expands
+    grouped tables of more than one group to this form).  The per-codeword
+    exchange is out[t, b] = x[index[t, b], b]: in the time-major layout the
+    32 codewords of a warp read neighbouring addresses wherever they share a
+    block size.
     """
     B, K = ls.shape
     if K != cfg.K:
@@ -103,18 +116,24 @@ def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
 
     # Extended permutations cover the pad region (gathered rows >= K are
     # masked to zero a-priori inside the kernel, so identity is fine there).
-    ext = np.arange(K, KTp, dtype=np.int64)
-    if perm_b is None:
-        perm = cfg.perm().astype(np.int64)
-        perm_e = torch.from_numpy(np.concatenate([perm, ext])).to(dev)
-        inv_e = torch.from_numpy(
-            np.concatenate([cfg.inv().astype(np.int64), ext])).to(dev)
+    shared = perm is None or perm.dim() == 1
+    if perm is None:
+        ext = np.arange(K, KTp, dtype=np.int64)
+        perm_e, inv_e = (torch.from_numpy(np.concatenate(
+            [t.astype(np.int64), ext])).to(dev)
+            for t in (cfg.perm(), cfg.inv()))
+    elif shared:
+        ext = torch.arange(K, KTp, device=dev)
+        perm_e, inv_e = (torch.cat([t, ext]) for t in (perm, inv))
+    else:
+        perm_e, inv_e = (time_major_index(t, KTp) for t in (perm, inv))
+    if shared:
         g_perm = lambda x: x.index_select(0, perm_e)
         g_inv = lambda x: x.index_select(0, inv_e)
     else:
-        perm_e, inv_e = (time_major_index(t, KTp) for t in (perm_b, inv_b))
         g_perm = lambda x: torch.gather(x, 0, perm_e)
         g_inv = lambda x: torch.gather(x, 0, inv_e)
+    TABLE_FORMS["shared" if shared else "per_codeword"] += 1
 
     with record_function("turbo.pack"):
         # ls2's body: ls along perm_e's first K rows (shared or per codeword)
@@ -123,8 +142,9 @@ def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
 
     # fold_gather: both SISOs read the other's RAW extrinsic tensor through
     # their own gather table inside the kernel.  Shared-table NII batches
-    # only; per-codeword (mixed-K) tables keep the torch.gather path.
-    fold = cfg.fold_gather and cfg.nii and perm_b is None
+    # only (a single-size grouped batch among them); per-codeword (mixed-K)
+    # tables keep the torch.gather path.
+    fold = cfg.fold_gather and cfg.nii and shared
     if fold:
         perm_i, inv_i = perm_e.to(torch.int32), inv_e.to(torch.int32)
 
