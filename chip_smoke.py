@@ -22,9 +22,12 @@ and drives the port's entry points:
   for byte against their plain versions and timed against them at the
   chained benchmark cells' shapes (B=16384, K=6144 with the shared table;
   B=6656, K=5824 with per-codeword tables; phase `decode`), and in a crc
-  decode the two kernels of the CRC early exit once an iteration (also at
-  the transport-block cells' size), held byte for byte against the plain
-  chain and timed against it at those cells' shape (phase `decode`),
+  decode with a shared table the live prefix's four kernels once an
+  iteration, with per-codeword tables the freezing exit's two (both also
+  at the transport-block cells' size, where the two decodes must agree),
+  each held byte for byte against its plain version and timed against it
+  at those cells' shape, beside a SISO call on a live count held against
+  the same call on the narrowed columns (phase `decode`),
   and the same decode with `fold_gather=True`, which must give the same bits,
   iteration counts and L through the folded kernel alone (phase `fold`, with
   the row-gather experiment, timed back to back and as a CUDA graph against
@@ -538,6 +541,10 @@ def check_parallel_edges(dev, worst):
     return out
 
 
+# the SISO columns the decoder counts beside its launches
+SISO_COLUMNS = ("siso_columns.run", "siso_columns.full")
+
+
 def count_launches(results, fn):
     """Run `fn` with the port's one launch count (`_device.LAUNCHES`) set to
     0 just before and read just after; add what it launched, but for the
@@ -545,7 +552,9 @@ def count_launches(results, fn):
     themselves through `layout_launches`), to the main path's totals.  Returns
     (fn's result, launches by kernel less the SISO1 calls the early-exit
     loop launched ahead of a read and dropped, `turbo_cells.DROPPED`: the
-    launches that did an iteration's work, which the callers check)."""
+    launches that did an iteration's work, which the callers check).  The
+    SISO columns the decoder counts beside its launches (`siso_columns.*`)
+    are left out."""
     from turbotpu_torch import _device
     from turbotpu_torch.decoder import layout, turbo_cells
     turbo_cells.DROPPED.clear()
@@ -553,11 +562,23 @@ def count_launches(results, fn):
     out = fn()
     torch.cuda.synchronize()
     launched = collections.Counter({
-        k: v for k, v in _device.LAUNCHES.items() if k not in layout.KERNELS})
+        k: v for k, v in _device.LAUNCHES.items()
+        if k not in layout.KERNELS and k not in SISO_COLUMNS})
     for name, n in launched.items():
         results[name]["launches"] = results[name].get("launches", 0) + n
     return out, collections.Counter(
         {k: v - turbo_cells.DROPPED.get(k, 0) for k, v in launched.items()})
+
+
+def crc_layout(n_iters):
+    """The layout kernels of a decode with a shared table that ran n_iters
+    iterations in `crc` mode (0: a lean decode): one `pack_kernel`; each
+    iteration the live prefix's syndromes (`exit_kernel`), the unpack of
+    the codewords that retire, its close and its moves; a lean decode one
+    unpack."""
+    return {"pack_kernel": 1, "unpack_kernel": n_iters or 1,
+            "exit_kernel": n_iters, "exit_close_kernel": 0,
+            "live_close_kernel": n_iters, "compact_kernel": n_iters}
 
 
 def layout_launches(results):
@@ -807,10 +828,257 @@ def check_exit(dev, results, shape=EXIT_SHAPE, shares=EXIT_DONE):
     return out
 
 
+def compact_bytes(src, hole, KTp, n_win, chan_bytes, ext_bytes):
+    """Least bytes one `compact_kernel` call moves for the (source, hole)
+    pairs: one element a row of every working array (the four channel
+    streams and the carry of KTp rows, the two window tables of n_win x 8)
+    read at each source and written at each hole, and the pairs read; and
+    the bytes of the 32-byte sectors those elements lie in (each row's
+    sectors that hold a source read once, those that hold a hole written
+    once), which the scattered columns cost at least."""
+    rows = ((4 * KTp, chan_bytes), (KTp, ext_bytes), (2 * n_win * 8, 4))
+    least = len(src) * (2 * sum(r * b for r, b in rows) + 8)
+    sectors = sum(r * 32 * sum(len(torch.unique(c // (32 // b)))
+                              for c in (src, hole)) for r, b in rows)
+    return least, sectors + 8 * len(src)
+
+
+# the live prefix at the cells' shape: n0 = 6/7 of the columns live, of
+# which these shares pass the CRC, and the last iteration (every one
+# retires) at the middle share
+LIVE_CASES = ((0.0, False), (0.33, False), (0.9, False), (0.33, True))
+
+
+def check_live(dev, results, shape=EXIT_SHAPE, cases=LIVE_CASES):
+    """The live prefix of the `crc` loop with a shared table (csrc/
+    layout.cu: `exit_kernel` with a count, `unpack_kernel` over the
+    prefix, `live_close_kernel`, `compact_kernel`) at the transport-block
+    cells' shape (bf16 channel, int8 extrinsics, NII windows of 256), as
+    the loop calls them: a prefix of n0 = 6/7 B columns holding a random
+    choice of codewords, of which about `share` have channel LLRs of the
+    all-zero word that outweigh the extrinsics (they pass).  For each case
+    `live_syndromes`, `retire_outputs` and `live_compact` against their
+    plain versions on copies of the same card tensors, byte for byte (the
+    syndromes, the retired codewords' rows of hard and L and the rest
+    untouched, done, iters, col, the state, the moves, every working
+    array); each kernel's device time from a trace of 20 calls on the same
+    operands, beside the plain chain's time (CUDA events) and the byte
+    bound at PEAK_BYTES_PER_S.  Then a SISO call on a live count below its
+    grid's bound against the same call on the narrowed columns, byte for
+    byte, in both contracts, and its time at three counts.  Returns the records; `results` takes the 33% case's."""
+    import tempfile
+
+    from turbotpu_torch import _device
+    from turbotpu_torch.decoder import layout
+    from turbotpu_torch.harness import profiling
+    from turbotpu_torch.harness.profiling import compiled_stats
+    from turbotpu_torch.siso.cuda_kernel import siso_cells
+    from turbotpu_torch.spec.crc import CRC24B_POLY
+
+    B, K, KTp = shape
+    W = 256
+    n_win = KTp // W
+    dt, ext, deq, poly = torch.bfloat16, torch.int8, 0.75 * 0.25, CRC24B_POLY
+    n0 = B - B // 7
+    g = torch.Generator(device=dev).manual_seed(B + K + 25)
+    chan = lambda: (torch.randn((KTp, B), generator=g, device=dev) * 8).to(dt)
+    codes = lambda: torch.randint(-127, 128, (KTp, B), generator=g,
+                                  device=dev, dtype=ext)
+    table = lambda: torch.randn((n_win, 8, B), generator=g, device=dev)
+    base = (chan(), chan(), chan(), chan(), codes(), table(), table())
+    le1 = codes()
+    out = []
+    for share, last in cases:
+        col = torch.randperm(B, generator=g, device=dev).to(torch.int32)
+        passing = (torch.rand((n0,), generator=g, device=dev)
+                   < share).nonzero()[:, 0]      # working columns
+        moved0 = tuple(x.clone() for x in base)
+        moved0[0][:K, passing] = 4096.0     # outweighs the extrinsics
+        done0 = torch.ones((B,), dtype=torch.bool, device=dev)
+        done0[col[:n0].long()] = False
+        iters0 = torch.randint(0, 6, (B,), generator=g, device=dev,
+                               dtype=torch.int32)
+        live0 = layout.live_prefix(B, dev)
+        live0.col.copy_(col)
+        live0.state[0] = n0
+        outs0 = (torch.zeros((B, K), dtype=torch.int8, device=dev),
+                 torch.full((B, K), -1.0, device=dev))
+
+        def fresh():
+            moved = tuple(x.clone() for x in moved0)
+            return (moved, done0.clone(), iters0.clone(),
+                    layout.LivePrefix(*(x.clone() for x in live0)),
+                    tuple(x.clone() for x in outs0))
+
+        def run(state, plain):
+            moved, done, iters, live, (hard, L) = state
+            ls1, le21 = moved[0], moved[4]
+            if plain:
+                layout.live_syndromes_plain(ls1, le1, le21, K, deq, ext,
+                                            poly, live)
+                synd = live.synd.clone()
+                layout.retire_outputs_plain(hard, L, ls1, le1, le21, K, deq,
+                                            ext, live, last)
+                layout.live_compact_plain(done, iters, live, moved, last)
+            else:
+                layout.live_syndromes(ls1, le1, le21, K, deq, ext, poly,
+                                      live, n0)
+                synd = live.synd.clone()
+                layout.retire_outputs(hard, L, ls1, le1, le21, K, deq, ext,
+                                      live, n0, last)
+                layout.live_compact(done, iters, live, moved, last)
+            return synd
+
+        want, got = fresh(), fresh()
+        synd_w = run(want, True)
+        before = collections.Counter(_device.LAUNCHES)
+        synd_g = run(got, False)
+        torch.cuda.synchronize()
+        launched = {k: _device.LAUNCHES[k] - before[k]
+                    for k in layout.KERNELS}
+        if launched != {"pack_kernel": 0, "unpack_kernel": 1,
+                        "exit_kernel": 1, "exit_close_kernel": 0,
+                        "live_close_kernel": 1, "compact_kernel": 1}:
+            raise AssertionError(f"the live prefix's passes launched "
+                                 f"{launched}")
+        stay, n_ret, n_mv = (int(x) for x in want[3].state)
+        pairs = [want[0], got[0]]
+        checks = {
+            "syndromes": same(synd_g[:n0], synd_w[:n0]),
+            "state": same(got[3].state, want[3].state),
+            "done": same(got[1], want[1]), "iters": same(got[2], want[2]),
+            "col": same(got[3].col[:stay], want[3].col[:stay]),
+            "moves": same(got[3].lists[:, :n_mv], want[3].lists[:, :n_mv]),
+            "synd_zero": not bool(got[3].synd.any()),
+            "hard": same(got[4][0], want[4][0]),
+            "L": same(got[4][1].view(torch.int32), want[4][1].view(
+                torch.int32)),
+            "working_set": all(same(a.view(torch.uint8), b.view(torch.uint8))
+                               for a, b in zip(*pairs))}
+        n_pass = int((synd_w[:n0] == 0).sum())
+        if not all(checks.values()) or n_ret != (n0 if last else n_pass) \
+                or stay != n0 - n_ret or (not last and n_pass < len(passing)):
+            raise AssertionError(f"the live prefix differs from its plain "
+                                 f"version at {share:.0%} passing (last "
+                                 f"{last}): {checks}, state "
+                                 f"{(stay, n_ret, n_mv)}, {n_pass} pass")
+
+        # device time of each kernel: 20 calls, the operands restored
+        # before each (so each call does the same work), the restores left
+        # out by kernel name
+        state = fresh()
+        moved, done, iters, live, (hard, L) = state
+
+        def restore():
+            for x, x0 in zip(moved, moved0):
+                x.copy_(x0)
+            for x, x0 in zip(live, live0):
+                x.copy_(x0)
+
+        def once():
+            restore()
+            run(state, False)
+
+        once()
+        with tempfile.TemporaryDirectory() as tmp:
+            with profiling.trace(tmp, host=False):
+                for _ in range(20):
+                    once()
+            ops = profiling.device_ops(Path(tmp) / profiling.TRACE_FILE)
+        dev_ms = collections.Counter()
+        for name, _, dur in ops:
+            dev_ms[kernel_id(name)] += dur / 1e3 / 20
+
+        def plain_once():
+            restore()
+            run(state, True)
+
+        src, hole = (x[:n_mv].long() for x in want[3].lists)
+        least, sector = compact_bytes(src, hole, KTp, n_win, dt.itemsize,
+                                      ext.itemsize)
+        rec = {"B": B, "K": K, "KTp": KTp, "chan": "bfloat16",
+               "ext": "int8", "share": share, "last": last, "n": n0,
+               "passed": n_pass, "stay": stay, "retired": n_ret,
+               "moves": n_mv, "equal": True,
+               "ms": {k: dev_ms[k] for k in ("exit_kernel", "unpack_kernel",
+                                             "live_close_kernel",
+                                             "compact_kernel")},
+               "plain_ms": time_launches(plain_once, 5)
+               - time_launches(restore, 5),
+               "bound_ms": {
+                   "exit_kernel": exit_bytes(n0, K, KTp, dt.itemsize,
+                                             ext.itemsize, 0)
+                   / PEAK_BYTES_PER_S * 1e3,
+                   "unpack_kernel": n_ret * K * (dt.itemsize
+                                                 + 2 * ext.itemsize + 5)
+                   / PEAK_BYTES_PER_S * 1e3,
+                   "live_close_kernel": (n0 * (4 + 4 + 4 + 8 + 1)
+                                         + n_mv * 16)
+                   / PEAK_BYTES_PER_S * 1e3,
+                   "compact_kernel": least / PEAK_BYTES_PER_S * 1e3},
+               "compact_sector_bound_ms": sector / PEAK_BYTES_PER_S * 1e3}
+        out.append(rec)
+        del moved0, done0, iters0, live0, outs0, want, got, pairs, state
+        del moved, done, iters, live, hard, L
+        torch.cuda.empty_cache()
+    del base, le1
+
+    # a SISO call on a live count n below its grid's bound N against the
+    # same call on the n narrowed columns, in both contracts
+    ls, lp = chan(), chan()
+    la = codes()
+    ain = table()
+    siso = []
+    for nii in (True, False):
+        kw = dict(window=W, ext_qscale=0.25, nii_ckpt=ain if nii else None)
+        for count, N in ((n0 * 45 // 100, n0), (17, B)):
+            cnt = torch.tensor([count], dtype=torch.int32, device=dev)
+            got = siso_cells(ls, lp, la, K, "maxlog", 0.75, live=(cnt, N),
+                             **kw)
+            narrow = lambda x: x[..., :count].contiguous()
+            want = siso_cells(narrow(ls), narrow(lp), narrow(la), K,
+                              "maxlog", 0.75, **dict(
+                                  kw, nii_ckpt=narrow(ain) if nii else None))
+            got, want = (x if nii else (x, None) for x in (got, want))
+            if not (same(got[0][:, :count], want[0]) and (
+                    not nii or same(got[1][1:, :, :count], want[1][1:]))):
+                raise AssertionError(f"a SISO call on a live count of "
+                                     f"{count} (grid {N}, nii {nii}) "
+                                     f"differs from the narrowed call")
+        ms = {}
+        for count in (B, B * 45 // 100, B // 10):
+            cnt = torch.tensor([count], dtype=torch.int32, device=dev)
+            ms[count] = time_launches(lambda: siso_cells(
+                ls, lp, la, K, "maxlog", 0.75, live=(cnt, count), **kw), 20)
+        siso.append({"nii": nii, "equal": True, "ms_at_count": ms})
+    del ls, lp, la, ain
+    torch.cuda.empty_cache()
+
+    stats = [{k: f[k] for k in ("function", "registers", "spill_stores",
+                                "spill_loads", "stack", "smem")}
+             for f in compiled_stats(layout.TARGET)
+             if f["function"] in ("live_close_kernel", "compact_kernel")]
+    mid = out[1]
+    shape_rec = {k: mid[k] for k in ("B", "K", "KTp", "chan", "ext", "n",
+                                     "share", "moves")}
+    for name in ("live_close_kernel", "compact_kernel"):
+        results[name].update(
+            max_abs_err=0.0, ms=mid["ms"][name], plain_ms=mid["plain_ms"],
+            bound_ms=mid["bound_ms"][name], bound_by="bytes",
+            shape=shape_rec,
+            at_share={f"{r['share']}{' last' if r['last'] else ''}": {
+                "ms": r["ms"][name], "bound_ms": r["bound_ms"][name],
+                "moves": r["moves"]} for r in out},
+            ptxas=[f for f in stats if f["function"] == name])
+    results["compact_kernel"]["sector_bound_ms"] = \
+        mid["compact_sector_bound_ms"]
+    return {"prefix": out, "siso": siso}
+
+
 def check_decode(dev, results):
     """Phase `decode`: the main path, with launch counts, and the layout
     kernels at the chained cells' shapes (`check_layout`)."""
-    from turbotpu_torch import turbo_decode
+    from turbotpu_torch import _device, turbo_decode
     from turbotpu_torch.harness.bench import flagship_config, make_decode_inputs
 
     K, B, ebn0 = 6144, 1024, 2.0
@@ -820,19 +1088,13 @@ def check_decode(dev, results):
     bits = torch.from_numpy(bits).to(dev)
     rec = {"K": K, "B": B, "ebn0_db": ebn0}
 
-    def layout_expected(n_exit):
-        """One launch of each layout crossing, the exit's two kernels once
-        an iteration run."""
-        return {"pack_kernel": 1, "unpack_kernel": 1, "exit_kernel": n_exit,
-                "exit_close_kernel": n_exit}
-
     (hard, iters, L), launched = count_launches(
         results, lambda: turbo_decode(*inputs, flagship_config()))
     rec["layout_launches"] = layout_launches(results)
     if not only(launched, siso_nii=12):
         raise AssertionError(f"lean decode: 12 siso_nii launches expected, "
                              f"counted {launched}")
-    if rec["layout_launches"] != layout_expected(0):
+    if rec["layout_launches"] != crc_layout(0):
         raise AssertionError(f"lean decode: one launch of each layout "
                              f"crossing and no exit expected, counted "
                              f"{rec['layout_launches']}")
@@ -851,9 +1113,9 @@ def check_decode(dev, results):
     rec["crc_max_iters"] = int(iters_c.max())
     rec["crc_mean_iters"] = float(iters_c.float().mean())
     rec["crc_layout_launches"] = lay_c
-    if lay_c != layout_expected(rec["crc_max_iters"]):
-        raise AssertionError(f"crc decode: the exit's two kernels once an "
-                             f"iteration expected, counted {lay_c}")
+    if lay_c != crc_layout(rec["crc_max_iters"]):
+        raise AssertionError(f"crc decode: the live prefix's kernels once "
+                             f"an iteration expected, counted {lay_c}")
 
     (hard_x, _, _), launched_x = count_launches(
         results, lambda: turbo_decode(*inputs, flagship_config(nii=False)))
@@ -875,28 +1137,52 @@ def check_decode(dev, results):
     del inputs, bits, hard, iters, L, hard_c, iters_c, hard_x
     torch.cuda.empty_cache()
 
-    # a crc decode at the transport-block cells' size: the exit's two
-    # kernels once an iteration run, and nothing of the PyTorch chain
+    # a crc decode at the transport-block cells' size: the live prefix's
+    # kernels once an iteration run, and nothing of the PyTorch chain; the
+    # same decode on the same tables in per-codeword form runs the freezing
+    # loop (the exit's two kernels once an iteration) to the same bytes
     B3, K3 = EXIT_SHAPE[:2]
+    cfg3 = flagship_config(K=K3, early_term="crc")
     inputs3 = tuple(x.to(dev) for x in make_decode_inputs(
         K3, B3, seed=5, ebn0_db=1.0, with_crc=True))
-    (_, iters3, _), launched3 = count_launches(
-        results, lambda: turbo_decode(
-            *inputs3, flagship_config(K=K3, early_term="crc")))
+    got3, launched3 = count_launches(
+        results, lambda: turbo_decode(*inputs3, cfg3))
     lay3 = layout_launches(results)
+    cols = {k: _device.LAUNCHES[k] for k in SISO_COLUMNS}
+    iters3 = got3[1]
     n3 = int(iters3.max())
+    per_cw = {name: torch.from_numpy(t.astype(np.int64)).expand(B3, -1)
+              .to(dev) for name, t in (("perm_b", cfg3.perm()),
+                                       ("inv_b", cfg3.inv()))}
+    want3, launched_f = count_launches(
+        results, lambda: turbo_decode(*inputs3, cfg3, **per_cw))
+    lay_f = layout_launches(results)
     rec["cell_size_crc"] = {"K": K3, "B": B3, "max_iters": n3,
                             "mean_iters": float(iters3.float().mean()),
                             "launches": {k: v for k, v in launched3.items()
                                          if v},
-                            "layout_launches": lay3}
-    if not only(launched3, siso_nii=2 * n3) or lay3 != layout_expected(n3):
+                            "layout_launches": lay3, "siso_columns": cols,
+                            "per_codeword_launches": {
+                                k: v for k, v in launched_f.items() if v},
+                            "per_codeword_layout_launches": lay_f}
+    if not only(launched3, siso_nii=2 * n3) or lay3 != crc_layout(n3):
         raise AssertionError(f"crc decode at the cells' size: "
                              f"{rec['cell_size_crc']}")
-    del inputs3, iters3
+    if not only(launched_f, siso_nii=2 * n3) or lay_f != {
+            "pack_kernel": 1, "unpack_kernel": 1, "exit_kernel": n3,
+            "exit_close_kernel": n3, "live_close_kernel": 0,
+            "compact_kernel": 0}:
+        raise AssertionError(f"crc decode with per-codeword tables at the "
+                             f"cells' size: the exit's two kernels once an "
+                             f"iteration expected: {rec['cell_size_crc']}")
+    if not all(same(a, b) for a, b in zip(got3, want3)):
+        raise AssertionError("crc decode at the cells' size: the live "
+                             "prefix and the freezing loop differ")
+    del inputs3, iters3, got3, want3, per_cw
     torch.cuda.empty_cache()
     rec["layout"] = check_layout(dev, results)
     rec["exit"] = check_exit(dev, results)
+    rec["live"] = check_live(dev, results)
     emit("decode", **rec)
 
 
@@ -1400,13 +1686,11 @@ def check_harq(dev, card, results):
                             out["ok"].float().mean()),
                         "launches": {k_: v for k_, v in launched.items() if v},
                         "layout_launches": lay})
-        if not only(launched, **want) or lay != {
-                "pack_kernel": 1, "unpack_kernel": 1, "exit_kernel": iters,
-                "exit_close_kernel": iters}:
+        if not only(launched, **want) or lay != crc_layout(iters):
             raise AssertionError(f"the receiver at the cell's size, TTI "
                                  f"{tti}: {want}, one launch of each layout "
-                                 f"crossing and the exit's two kernels an "
-                                 f"iteration expected, counted "
+                                 f"crossing and the live prefix's kernels "
+                                 f"an iteration expected, counted "
                                  f"{per_tti[-1]}")
     cell_counts = rx.counts()
     del rx, llr, out
@@ -2874,6 +3158,13 @@ def main(argv) -> int:
             "replaces": "none: XLA fuses turbotpu/decoder/turbo_cells.py"
                         ":251-267 (the dot_general syndrome and the "
                         "freezes)", "library_ms": None}
+    for name in ("live_close_kernel", "compact_kernel"):
+        results[name] = {
+            "name": name, "route": "cuda",
+            "source": "turbotpu_torch/csrc/layout.cu",
+            "replaces": "none: the JAX loop (turbotpu/decoder/"
+                        "turbo_cells.py:251-267) runs every codeword to the "
+                        "end", "library_ms": None}
     results["combine_kernel"] = {
         "name": "combine_kernel", "route": "cuda",
         "source": "turbotpu_torch/csrc/harq.cu",

@@ -223,26 +223,39 @@ def test_exit_refuses_what_the_kernel_does_not_take():
 def test_crc_decode_stops_each_codeword_where_it_passes(cfg_kw):
     """Each codeword of a `crc` decode carries the outputs of the lean
     decode run for as many iterations as it counts: its carry froze at the
-    iteration its hard bits passed the CRC (or at the cap)."""
+    iteration its hard bits passed the CRC (or at the cap) in the freezing
+    loop (per-codeword tables, `crc_exit`), and it retired then from the
+    live prefix (the configuration's shared table, `live_syndromes`).
+    Either loop runs its exit once an iteration."""
+    import turbotpu_torch.decoder.turbo_cells as tc
+
     K, B, n = 104, 19, 5
     inputs = make_decode_inputs(K, B, seed=7, ebn0_db=0.5, with_crc=True)
     cfg = dict(K=K, n_iters=n, mode="maxlog", siso="cuda", **cfg_kw)
-    calls = []
-    crc_exit = layout.crc_exit
+    c = DecoderConfig(early_term="crc", **cfg)
+    per_codeword = dict(perm_b=np.tile(c.perm(), (B, 1)),
+                        inv_b=np.tile(c.inv(), (B, 1)))
+    outs = []
+    for exit_name, tables in (("live_syndromes", {}),
+                              ("crc_exit", per_codeword)):
+        calls = []
+        exit_fn = getattr(tc, exit_name)
 
-    def counted(*a, **k):
-        calls.append(1)
-        return crc_exit(*a, **k)
+        def counted(*a, **k):
+            calls.append(1)
+            return exit_fn(*a, **k)
 
-    import turbotpu_torch.decoder.turbo_cells as tc
-    tc.crc_exit, saved = counted, tc.crc_exit
-    try:
-        hard, iters, L = turbo_decode(
-            *inputs, DecoderConfig(early_term="crc", **cfg), device="cpu")
-    finally:
-        tc.crc_exit = saved
+        setattr(tc, exit_name, counted)
+        try:
+            outs.append(turbo_decode(*inputs, c, device="cpu", **tables))
+        finally:
+            setattr(tc, exit_name, exit_fn)
+        it = outs[-1][1].numpy()
+        assert len(calls) == it.max() and 1 <= it.min() and it.max() <= n
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+    hard, iters, L = outs[0]
     it = iters.numpy()
-    assert len(calls) == it.max() and 1 <= it.min() and it.max() <= n
     assert len(set(it.tolist())) > 1          # codewords stop apart
     for k in sorted(set(it.tolist())):
         h, _, l = turbo_decode(*inputs, DecoderConfig(
@@ -273,7 +286,7 @@ def _kernel_vs_plain(B, K, chan, ext, poly, carry, table, seed):
     assert {k: _device.LAUNCHES[k] - before.get(k, 0)
             for k in layout.KERNELS} == {
         "pack_kernel": 0, "unpack_kernel": 0, "exit_kernel": 1,
-        "exit_close_kernel": 1}
+        "exit_close_kernel": 1, "live_close_kernel": 0, "compact_kernel": 0}
     torch.cuda.synchronize()
     # written in place, as the loop carries them on
     assert got[0] is got_args[3] and got[1] is got_args[5]
@@ -317,9 +330,11 @@ def test_exit_kernel_matches_plain_at_the_transport_block_cell(carry, table):
     dict(io_dtype="float32", ext_dtype="float8_e4m3fn", interleaver="umts"),
 ])
 def test_crc_decode_launches_the_exit_each_iteration(cfg_kw):
-    """A `crc` decode on the card launches the exit's two kernels once an
-    iteration run and gives the CPU's bits, iteration counts and L; a lean
-    decode launches neither."""
+    """A `crc` decode on the card (a shared table: the live prefix)
+    launches the syndromes' kernel, the retired codewords' unpack, the
+    close and the column moves once an iteration run, and gives the CPU's
+    bits, iteration counts and L; a lean decode launches none of them and
+    one unpack."""
     _card()
     K, B = 168, 37
     inputs = make_decode_inputs(K, B, seed=4, ebn0_db=1.0, with_crc=True)
@@ -332,8 +347,9 @@ def test_crc_decode_launches_the_exit_each_iteration(cfg_kw):
         n = int(got[1].max()) if term == "crc" else 0
         assert {k: _device.LAUNCHES[k] - before.get(k, 0)
                 for k in layout.KERNELS} == {
-            "pack_kernel": 1, "unpack_kernel": 1, "exit_kernel": n,
-            "exit_close_kernel": n}
+            "pack_kernel": 1, "unpack_kernel": n or 1, "exit_kernel": n,
+            "exit_close_kernel": 0, "live_close_kernel": n,
+            "compact_kernel": n}
         want = turbo_decode(*inputs, cfg, device="cpu")
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w)

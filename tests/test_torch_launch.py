@@ -65,11 +65,12 @@ def _c_body(source: str, symbol: str) -> str:
 
 
 def test_every_kernel_source_has_its_entry():
-    """Eight packed C entries: layout.cu's three, one each in harq.cu,
+    """Nine packed C entries: layout.cu's four, one each in harq.cu,
     ring_xch.cu, row_gather.cu, issue_rate.cu and siso.cu."""
     assert sorted(ENTRIES) == sorted([
         "turbotpu_pack_streams_launch", "turbotpu_assemble_outputs_launch",
-        "turbotpu_crc_exit_launch", "turbotpu_harq_combine_launch",
+        "turbotpu_crc_exit_launch", "turbotpu_live_compact_launch",
+        "turbotpu_harq_combine_launch",
         "turbotpu_ring_xch_launch", "turbotpu_row_gather_launch",
         "turbotpu_issue_rate_launch", "turbotpu_siso_launch"])
     sources = {e.target[0] for e in ENTRIES.values()}
@@ -89,12 +90,13 @@ def test_packed_entry_reads_its_block(symbol):
 
 
 def test_siso_entry_reads_every_field():
-    """The SISO entry reads each of its 25 fields: passes, the codes and
-    nii, twelve pointers, five sizes, eff and inv_q, the stream."""
+    """The SISO entry reads each of its 27 fields: passes, the codes and
+    nii, twelve pointers, five sizes, eff and inv_q, the live count and the
+    columns its grid spans, the stream."""
     body = _c_body((_build.CSRC / "siso.cu").read_text(),
                    "turbotpu_siso_launch")
     read = {int(i) for i in re.findall(r"\ba\[(\d+)\]", body)}
-    assert read == set(range(25))
+    assert read == set(range(27))
 
 
 def _streams(KTp=48, B=4, seed=0):
@@ -114,7 +116,10 @@ def _siso(contract):
           "fold": {"nii_ckpt": ain,
                    "gather_idx": torch.randperm(KTp).to(torch.int32)},
           "bnd_exact": {"boundaries": (e0, e0)},
-          "bnd_nii": {"nii_boundaries": (ain, e0, e0)}}[contract]
+          "bnd_nii": {"nii_boundaries": (ain, e0, e0)},
+          "live": {"nii_ckpt": ain,
+                   "live": (torch.tensor([3], dtype=torch.int32), B)},
+          }[contract]
     ck.siso_cells(ls, lp, la, K, "maxlog", window=W, **kw)
 
 
@@ -141,6 +146,22 @@ def _exit():
                     torch.float32, CRC24B_POLY)
 
 
+def _live():
+    ls, le = _streams()
+    B = ls.shape[1]
+    live = layout.live_prefix(B, torch.device("cpu"))
+    le1, le21 = le.clone(), le.neg()
+    layout.live_syndromes(ls, le1, le21, 40, 0.75, torch.float32,
+                          CRC24B_POLY, live, B)
+    layout.retire_outputs(torch.zeros((B, 40), dtype=torch.int8),
+                          torch.zeros((B, 40)), ls, le1, le21, 40, 0.75,
+                          torch.float32, live, B, False)
+    layout.live_compact(torch.zeros(B, dtype=torch.bool),
+                        torch.zeros(B, dtype=torch.int32), live,
+                        (ls, ls.clone(), ls.clone(), ls.clone(), le21, None,
+                         None), False)
+
+
 def _combine():
     K, E, F, bucket, rows = 40, 150, 0, 40, 4
     table, period = harq.combine_table(K, E, F, bucket, torch.device("cpu"))
@@ -157,10 +178,11 @@ def _ring():
 
 WRAPPERS = {
     **{f"siso_cells_{c}": (lambda c=c: _siso(c))
-       for c in ("exact", "nii", "fold", "bnd_exact", "bnd_nii")},
+       for c in ("exact", "nii", "fold", "bnd_exact", "bnd_nii", "live")},
     "pack_streams": _pack,
     "assemble_outputs": _assemble,
     "crc_exit": _exit,
+    "live_prefix": _live,
     "harq_combine": _combine,
     "ring_exchange": _ring,
     "row_gather": lambda: gi.row_gather(

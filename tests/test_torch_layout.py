@@ -265,9 +265,10 @@ def test_assemble_kernel_matches_plain_on_card(B, K, W, fold, ext, chan):
     dict(io_dtype="bfloat16", ext_dtype="bfloat16", interleaver="umts"),
 ])
 def test_decode_runs_both_kernels_and_matches_cpu(cfg_kw):
-    """A decode on the card launches each kernel once (and the CRC early
-    exit's two once an iteration in `crc` mode) and gives the CPU's bits,
-    iteration counts and L."""
+    """A decode on the card launches each kernel once (in `crc` mode the
+    live prefix's syndromes, unpack of the codewords that retire, close and
+    moves once an iteration) and gives the CPU's bits, iteration counts and
+    L."""
     _card()
     K, B = 168, 33
     inputs = make_decode_inputs(K, B, seed=4, ebn0_db=1.0, with_crc=True)
@@ -277,8 +278,9 @@ def test_decode_runs_both_kernels_and_matches_cpu(cfg_kw):
     n_exit = int(got[1].max()) if cfg.early_term == "crc" else 0
     assert {k: _device.LAUNCHES[k] - before.get(k, 0)
             for k in layout.KERNELS} == {
-        "pack_kernel": 1, "unpack_kernel": 1, "exit_kernel": n_exit,
-        "exit_close_kernel": n_exit}
+        "pack_kernel": 1, "unpack_kernel": n_exit or 1,
+        "exit_kernel": n_exit, "exit_close_kernel": 0,
+        "live_close_kernel": n_exit, "compact_kernel": n_exit}
     want = turbo_decode(*inputs, cfg, device="cpu")
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)

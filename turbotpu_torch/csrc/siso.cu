@@ -397,6 +397,16 @@ constexpr int PASS1_CW = EXACT_THREADS / 8;  // pass 1: codewords per warp
 constexpr int PASS1_DEPTH = 8;     // row blocks in flight in pass 1
 constexpr unsigned FULL = 0xffffffffu;
 
+// The codewords a launch decodes: the first n of the N columns its grid
+// spans, n read from the card (`count`, the decoder's live prefix, which
+// the host bounds by N) or N itself where the caller passes no count.
+// Blocks wholly past n return at once; lanes past n inside a block do
+// what lanes past B did before there was a count: they walk a column they
+// never store.
+__device__ __forceinline__ int live_count(const int* count, int N) {
+  return count ? min(*count, N) : N;
+}
+
 // Asynchronous copies global -> shared of N bytes (4, 8 or 16), completed
 // in groups.  Waiting for "all but the newest N groups" is what a register
 // prefetch cannot express: ptxas puts every stream load on one scoreboard,
@@ -575,20 +585,23 @@ __device__ __forceinline__ void walk(const TC* __restrict__ ls,
 }
 
 // Pass 1 of the exact contract: blockIdx.y 0 walks alpha, 1 walks beta,
-// PASS1_CW codewords a warp, 8 lanes each.  Lanes of codewords past B walk
-// the last codeword and store nothing: every lane takes part in every
-// shuffle.
+// PASS1_CW codewords a warp, 8 lanes each.  Lanes of codewords past the
+// count walk their own column (past B: the last codeword) and store
+// nothing: every lane takes part in every shuffle.
 template <int MODE, bool STAGED, typename TC, typename TE>
 __global__ void exact_pass1(const TC* __restrict__ ls,
                             const TC* __restrict__ lp,
                             const TE* __restrict__ la, float* __restrict__ ack,
-                            float* __restrict__ bck, int B_, int K, int n_win,
-                            int W, float eff, Edges e) {
+                            float* __restrict__ bck, int B_, int N,
+                            const int* count, int K, int n_win, int W,
+                            float eff, Edges e) {
   __shared__ __align__(16) Tile<TC, TE> tiles[STAGED ? PASS1_DEPTH : 1];
   const int64_t B = B_;
+  const int n = live_count(count, N);
+  if ((int64_t)blockIdx.x * PASS1_CW >= n) return;
   const int64_t bq = (int64_t)blockIdx.x * PASS1_CW + (threadIdx.x >> 3);
-  const bool live = bq < B;
-  const int64_t b = live ? bq : B - 1;
+  const bool live = bq < n;
+  const int64_t b = bq < B ? bq : B - 1;
   if (blockIdx.y == 0)
     walk<MODE, true, STAGED>(ls, lp, la, nullptr, e.a_in, ack, B, b, live, K,
                              n_win, W, eff, tiles);
@@ -631,7 +644,7 @@ __device__ __forceinline__ void window_alpha(const Streams<TC, TE>& st,
 
 // Pass 1 of the NII contract, one launch: blocks [0, n_beta) walk beta over
 // the segments as exact_pass1's beta slice does (PASS1_CW codewords a warp,
-// 8 lanes each); the n_win x ceil(B / 32) blocks after them walk the window
+// 8 lanes each); the n_win x ceil(N / 32) blocks after them walk the window
 // alphas, one thread per (window, codeword).  The beta blocks come first,
 // so the long walk starts first and the short ones fill the SMs beside it.
 template <int MODE, bool STAGED, typename TC, typename TE>
@@ -640,22 +653,24 @@ __global__ void nii_pass1(const TC* __restrict__ ls, const TC* __restrict__ lp,
                           const int* __restrict__ idx,
                           const float* __restrict__ ain,
                           float* __restrict__ aout, float* __restrict__ ack,
-                          float* __restrict__ bck, int B_, int K, int n_win,
-                          int W, int seg, int n_beta, float eff, Edges e) {
+                          float* __restrict__ bck, int B_, int N,
+                          const int* count, int K, int n_win, int W, int seg,
+                          int n_beta, float eff, Edges e) {
   __shared__ __align__(16) Tile<TC, TE> tiles[STAGED ? PASS1_DEPTH : 1];
   const int64_t B = B_;
+  const int n = live_count(count, N);
   if ((int)blockIdx.x < n_beta) {
+    if ((int64_t)blockIdx.x * PASS1_CW >= n) return;
     const int64_t bq = (int64_t)blockIdx.x * PASS1_CW + (threadIdx.x >> 3);
-    const bool live = bq < B;
     walk<MODE, false, STAGED>(ls, lp, la, idx, e.b_in, bck, B,
-                              live ? bq : B - 1, live, K, n_win * W / seg,
-                              seg, eff, tiles);
+                              bq < B ? bq : B - 1, bq < n, K,
+                              n_win * W / seg, seg, eff, tiles);
     return;
   }
   const int i = (int)blockIdx.x - n_beta;
-  const int gx = (B_ + EXACT_THREADS - 1) / EXACT_THREADS;
+  const int gx = (N + EXACT_THREADS - 1) / EXACT_THREADS;
   const int64_t b = (int64_t)(i % gx) * EXACT_THREADS + threadIdx.x;
-  if (b >= B) return;
+  if (b >= n) return;
   const Streams<TC, TE> st{ls, lp, la, idx, B, b, K, eff};
   window_alpha<MODE>(st, ain, aout, ack, i / gx, n_win, W, seg, e.a_in);
 }
@@ -696,16 +711,17 @@ __global__ void exact_pass2(const TC* __restrict__ ls,
                             const TE* __restrict__ la,
                             const int* __restrict__ idx, TE* __restrict__ le,
                             const float* __restrict__ ack,
-                            const float* __restrict__ bck, int B_, int K,
-                            int n_win, int W, float eff, float inv_q,
-                            Edges e) {
+                            const float* __restrict__ bck, int B_, int N,
+                            const int* count, int K, int n_win, int W,
+                            float eff, float inv_q, Edges e) {
   // the sub-checkpoints of the block's EXACT_THREADS codewords: (W / UNROLL,
   // 8, EXACT_THREADS) fp32, state s of block i of lane l at (i*8 + s)*32 + l
   extern __shared__ float exact_sub[];
   const int64_t B = B_;
   const int lane = threadIdx.x;
   const int64_t b = (int64_t)blockIdx.x * EXACT_THREADS + lane;
-  if (b >= B) return;  // each thread reads only its own shared memory
+  // each thread reads only its own shared memory
+  if (b >= live_count(count, N)) return;
   const Streams<TC, TE> st{ls, lp, la, idx, B, b, K, eff};
   const int w = blockIdx.y, base = w * W, nsub = W / UNROLL;
   float* sub = exact_sub + lane;
@@ -770,9 +786,9 @@ constexpr int PASS1 = 1, PASS2 = 2;
 template <typename TC, typename TE, int MODE>
 cudaError_t launch(bool nii, const void* ls, const void* lp, const void* la,
                    const int* idx, void* le, const float* ain, float* aout,
-                   float* ck, int B, int K, int n_win, int W, float eff,
-                   float inv_q, const Edges& e, int passes,
-                   cudaStream_t stream) {
+                   float* ck, int B, int N, const int* count, int K,
+                   int n_win, int W, float eff, float inv_q, const Edges& e,
+                   int passes, cudaStream_t stream) {
   const int seg = nii ? segment_of(W) : W;
   const int n_seg = n_win * W / seg;
   const int Kc = K - e.off;  // the mask on the chunk's own rows
@@ -781,7 +797,8 @@ cudaError_t launch(bool nii, const void* ls, const void* lp, const void* la,
   const TC* cls = (const TC*)ls;
   const TC* clp = (const TC*)lp;
   const TE* cla = (const TE*)la;
-  const unsigned gx = (unsigned)((B + EXACT_THREADS - 1) / EXACT_THREADS);
+  // the grid spans the first N columns (N <= B, the row pitch)
+  const unsigned gx = (unsigned)((N + EXACT_THREADS - 1) / EXACT_THREADS);
   // staged: every warp's rows are whole aligned pieces of 4 codewords
   const bool staged = B % PASS1_CW == 0 &&
                       ((uintptr_t)ls | (uintptr_t)lp | (uintptr_t)la) % 16 == 0;
@@ -789,27 +806,28 @@ cudaError_t launch(bool nii, const void* ls, const void* lp, const void* la,
   // table is written (one window)
   if ((passes & PASS1) && n_seg > 1) {
     if (nii) {
-      const int n_beta = (B + PASS1_CW - 1) / PASS1_CW;
+      const int n_beta = (N + PASS1_CW - 1) / PASS1_CW;
       const dim3 g1((unsigned)(n_beta + n_win * (int)gx));
       if (staged)
         nii_pass1<MODE, true, TC, TE><<<g1, dim3(EXACT_THREADS), 0, stream>>>(
-            cls, clp, cla, idx, ain, aout, ack, bck, B, Kc, n_win, W, seg,
-            n_beta, eff, e);
+            cls, clp, cla, idx, ain, aout, ack, bck, B, N, count, Kc, n_win,
+            W, seg, n_beta, eff, e);
       else
         nii_pass1<MODE, false, TC, TE><<<g1, dim3(EXACT_THREADS), 0, stream>>>(
-            cls, clp, cla, idx, ain, aout, ack, bck, B, Kc, n_win, W, seg,
-            n_beta, eff, e);
+            cls, clp, cla, idx, ain, aout, ack, bck, B, N, count, Kc, n_win,
+            W, seg, n_beta, eff, e);
     } else if constexpr (!FOLD) {
-      const dim3 g1((unsigned)((B + PASS1_CW - 1) / PASS1_CW), 2);
+      const dim3 g1((unsigned)((N + PASS1_CW - 1) / PASS1_CW), 2);
       if (staged)
         exact_pass1<MODE, true, TC, TE><<<g1, dim3(EXACT_THREADS), 0,
                                           stream>>>(cls, clp, cla, ack, bck, B,
-                                                    Kc, n_seg, seg, eff, e);
+                                                    N, count, Kc, n_seg, seg,
+                                                    eff, e);
       else
         exact_pass1<MODE, false, TC, TE><<<g1, dim3(EXACT_THREADS), 0,
                                            stream>>>(cls, clp, cla, ack, bck,
-                                                     B, Kc, n_seg, seg, eff,
-                                                     e);
+                                                     B, N, count, Kc, n_seg,
+                                                     seg, eff, e);
     }
   }
   if (passes & PASS2) {
@@ -818,8 +836,8 @@ cudaError_t launch(bool nii, const void* ls, const void* lp, const void* la,
     if (smem > 48 * 1024) return cudaErrorInvalidValue;
     exact_pass2<MODE, TC, TE><<<dim3(gx, n_seg), dim3(EXACT_THREADS), smem,
                                 stream>>>(cls, clp, cla, idx, (TE*)le, ack,
-                                          bck, B, Kc, n_seg, seg, eff, inv_q,
-                                          e);
+                                          bck, B, N, count, Kc, n_seg, seg,
+                                          eff, inv_q, e);
   }
   return cudaGetLastError();
 }
@@ -855,7 +873,7 @@ template <> struct StreamType<2> { using type = int8_t; };
 template <> struct StreamType<3> { using type = __nv_fp8_e4m3; };
 }  // namespace
 
-// The entry of every library: one pointer to 25 int64 arguments, read
+// The entry of every library: one pointer to 27 int64 arguments, read
 // before the launch (the caller may reuse the block at once).
 //   a[0] passes: 3 for a call, 1 or 2 for that pass alone, to time it (pass
 //        2 alone reads the checkpoints in ckpt, so a full launch on the same
@@ -866,7 +884,13 @@ template <> struct StreamType<3> { using type = __nv_fp8_e4m3; };
 //        ckpt, then the edges a_in, b_in, a_out, b_out;
 //   a[17] off, a[18] B, a[19] K, a[20] n_win, a[21] W;
 //   a[22], a[23] the bits of eff and inv_q as doubles, rounded to fp32 here
-//        as ctypes' c_float rounds a Python float; a[24] the cudaStream_t.
+//        as ctypes' c_float rounds a Python float;
+//   a[24] the live count: the device address of an int32 (0 for none), the
+//        number of leading columns to decode, read by every block when it
+//        starts (the decoder's live prefix, which the card alone knows
+//        exactly); a[25] N, the columns the grid spans, 1..B: without a
+//        count B, with one a bound the count never exceeds when the launch
+//        runs; a[26] the cudaStream_t.
 // nii != 0: (n_win, W) are the windows; ain/aout are (n_win, 8, B) fp32,
 // ckpt is (2, n_win * W / segment_of(W), 8, B) fp32 scratch.  nii == 0:
 // (n_win, W) are the segments the wrapper cut (W = segment_of(n_win * W));
@@ -885,8 +909,10 @@ extern "C" int turbotpu_siso_launch(const int64_t* a) {
                 (float*)a[16], (int)a[17]};
   const int n_edges = (e.a_in != nullptr) + (e.b_in != nullptr) +
                       (e.a_out != nullptr) + (e.b_out != nullptr);
+  const int* count = (const int*)a[24];
   if (passes < PASS1 || passes > (PASS1 | PASS2) || (a[8] != 0) != FOLD ||
-      (FOLD && !nii) || n_edges != (BND ? 4 : 0) || (!BND && e.off != 0))
+      (FOLD && !nii) || n_edges != (BND ? 4 : 0) || (!BND && e.off != 0) ||
+      a[25] < 1 || a[25] > a[18] || (!count && a[25] != a[18]))
     return (int)cudaErrorInvalidValue;
   double eff, inv_q;
   memcpy(&eff, &a[22], sizeof eff);
@@ -895,6 +921,6 @@ extern "C" int turbotpu_siso_launch(const int64_t* a) {
                      SISO_MODE>(
       nii, (const void*)a[5], (const void*)a[6], (const void*)a[7],
       (const int*)a[8], (void*)a[9], (const float*)a[10], (float*)a[11],
-      (float*)a[12], (int)a[18], (int)a[19], (int)a[20], (int)a[21],
-      (float)eff, (float)inv_q, e, passes, (cudaStream_t)a[24]);
+      (float*)a[12], (int)a[18], (int)a[25], count, (int)a[19], (int)a[20],
+      (int)a[21], (float)eff, (float)inv_q, e, passes, (cudaStream_t)a[26]);
 }

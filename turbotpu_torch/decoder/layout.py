@@ -6,9 +6,15 @@ the CRC early exit, two launches an iteration.
 into the SISO kernels' four time-major (KTp, B) streams; `assemble_outputs`
 turns the loop's time-major extrinsics back into the (B, K) hard bits and
 LLR L; `crc_exit` is one iteration's verdicts and freezes of the `crc`
-loop.  Each sits beside its plain version (`pack_streams_plain`,
-`assemble_outputs_plain`, `crc_exit_plain`): the same function in PyTorch
-operations, which gives the same bytes.
+loop.  The `crc` loop with one shared table keeps its live codewords in a
+dense prefix instead (`LivePrefix`): `live_syndromes` forms the prefix's
+syndromes (one launch), `retire_outputs` writes the outputs of the
+codewords that retire (one launch), `live_compact` closes the iteration and
+moves the live codewords into the holes (two launches).  Each sits beside
+its plain version (`pack_streams_plain`, `assemble_outputs_plain`,
+`crc_exit_plain`, `live_syndromes_plain`, `retire_outputs_plain`,
+`live_compact_plain`): the same function in PyTorch operations, which gives
+the same bytes.
 
 On a CUDA tensor a wrapper launches its kernel, or raises for what the
 kernel does not take; it takes the plain version only for tensors on the
@@ -19,6 +25,7 @@ layout.cu.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -30,12 +37,14 @@ from .early_term import _crc_check_matrix_np, make_crc_matrix
 
 TARGET: _build.Target = ("layout", ())
 # layout.cu's kernels, by the names their launches count under
-KERNELS = ("pack_kernel", "unpack_kernel", "exit_kernel", "exit_close_kernel")
+KERNELS = ("pack_kernel", "unpack_kernel", "exit_kernel", "exit_close_kernel",
+           "live_close_kernel", "compact_kernel")
 # each C entry takes one pointer to its int64 arguments, the stream last,
 # and the SISO library's type codes (_CHAN_TYPES, _EXT_TYPES)
 _PACK = _build.PackedEntry(TARGET, "turbotpu_pack_streams_launch", 24)
-_ASSEMBLE = _build.PackedEntry(TARGET, "turbotpu_assemble_outputs_launch", 11)
-_EXIT = _build.PackedEntry(TARGET, "turbotpu_crc_exit_launch", 18)
+_ASSEMBLE = _build.PackedEntry(TARGET, "turbotpu_assemble_outputs_launch", 16)
+_EXIT = _build.PackedEntry(TARGET, "turbotpu_crc_exit_launch", 20)
+_COMPACT = _build.PackedEntry(TARGET, "turbotpu_live_compact_launch", 20)
 _F32 = torch.float32
 # The stream format, for the plain version and the kernel alike: for ls1,
 # lp1s, lp2s and ls2 in turn, the tail it reads (0: tail1, 1: tail2), the
@@ -198,7 +207,7 @@ def assemble_outputs(ls1, le1, le21, K: int, deq: float, ext: torch.dtype):
     rc = launch_on(dev.index, _ASSEMBLE,
                    *(x.data_ptr() for x in (ls1, le1, le21, L, hard)), B, K,
                    _build.f64_bits(deq), _CHAN_TYPES[ls1.dtype],
-                   _EXT_TYPES[ext], count=("unpack_kernel",))
+                   _EXT_TYPES[ext], 0, 0, 0, 0, B, count=("unpack_kernel",))
     if rc != 0:
         raise RuntimeError(f"assemble_outputs launch failed: cudaError {rc} "
                            f"(B={B}, K={K}, {ls1.dtype}, {ext})")
@@ -228,19 +237,27 @@ def crc_exit_scratch(B: int, dev: torch.device):
             torch.empty((), dtype=torch.bool, device=dev))
 
 
-def crc_exit_plain(ls1, le1, le21, le1_new, le21_nat, le21_new, done, iters,
-                   K: int, deq: float, ext: torch.dtype, poly: int):
-    """Plain version of `crc_exit`: hard bits, an fp32 matmul against the
-    check matrix for the syndrome, and `torch.where` freezes."""
-    if ls1.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+def _syndromes(hard: torch.Tensor, K: int, poly: int) -> torch.Tensor:
+    """(K, n) hard bits -> (n,) int32: bit j the syndrome's bit j, as the
+    XOR of the packed masks (`crc_masks_np`) forms it, through an fp32
+    matmul (exact: sums of 0/1 up to K, with TF32 off)."""
+    if hard.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
             "the CRC syndrome needs an exact fp32 matmul: "
             "torch.backends.cuda.matmul.allow_tf32 must be False")
-    # fp32 operands: sums of 0/1 up to K are exact, with TF32 off.
-    G = make_crc_matrix(K, poly, ls1.device)
+    G = make_crc_matrix(K, poly, hard.device)
+    synd = (hard.T.to(_F32) @ G) % 2.0
+    weights = 2 ** torch.arange(G.shape[1], dtype=torch.int64,
+                                device=hard.device)
+    return (synd.to(torch.int64) * weights).sum(dim=1).to(torch.int32)
+
+
+def crc_exit_plain(ls1, le1, le21, le1_new, le21_nat, le21_new, done, iters,
+                   K: int, deq: float, ext: torch.dtype, poly: int):
+    """Plain version of `crc_exit`: hard bits, the syndromes as
+    `_syndromes` forms them, and `torch.where` freezes."""
     hard_new = full_llr(ls1, le1_new, le21_nat, K, deq, ext) < 0
-    synd = hard_new.T.to(_F32) @ G                       # (B, 24)
-    newly_done = (synd % 2.0 == 0.0).all(dim=1)
+    newly_done = _syndromes(hard_new, K, poly) == 0
     # Freeze converged codewords' extrinsics branchlessly; their SISO
     # outputs keep being computed (the batch runs anyway) and are
     # discarded here, so L/hard derived after the loop are pinned at the
@@ -273,20 +290,9 @@ def crc_exit(ls1, le1, le21, le1_new, le21_nat, le21_new, done, iters,
     in place: le1_new, le21_new, done and iters are written and returned,
     the flag is `scratch`'s (`crc_exit_scratch`); nothing is allocated.
     The bytes equal the plain version's."""
-    T, B = ls1.shape
-    if K <= 0 or T < K + 3:
-        raise ValueError(f"streams of {T} rows cannot hold K={K} and a tail")
-    if ls1.dtype not in _CHAN_TYPES:
-        raise ValueError(f"unsupported channel stream type {ls1.dtype}")
-    if ext not in _EXT_TYPES:
-        raise ValueError(f"unsupported extrinsic type {ext}")
-    for name, x in (("le1", le1), ("le21", le21), ("le1_new", le1_new),
-                    ("le21_nat", le21_nat), ("le21_new", le21_new)):
-        if (tuple(x.shape) != (T, B) or x.element_size() != ext.itemsize
-                or x.device != ls1.device):
-            raise ValueError(f"{name} must be {(T, B)} of {ext} on "
-                             f"{ls1.device}, got {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}")
+    B = ls1.shape[1]
+    _check_iteration(ls1, K, ext, False, le1=le1, le21=le21, le1_new=le1_new,
+                     le21_nat=le21_nat, le21_new=le21_new)
     for name, x, dt in (("done", done, torch.bool),
                         ("iters", iters, torch.int32)):
         if x.dtype != dt or tuple(x.shape) != (B,) or x.device != ls1.device:
@@ -329,7 +335,272 @@ def _exit_launch(ls1, le1, le21, le1_new, le21_nat, le21_new, done, iters,
                                             le21, le21_new, done, iters,
                                             masks, synd, flag)),
                    B, K, T, _build.f64_bits(deq), _CHAN_TYPES[ls1.dtype],
-                   _EXT_TYPES[ext], count=("exit_kernel", "exit_close_kernel"))
+                   _EXT_TYPES[ext], 0, B,
+                   count=("exit_kernel", "exit_close_kernel"))
     if rc != 0:
         raise RuntimeError(f"crc_exit launch failed: cudaError {rc} "
                            f"(B={B}, K={K}, KTp={T}, {ls1.dtype}, {ext})")
+
+
+# ---- the live prefix ------------------------------------------------------
+
+class LivePrefix(NamedTuple):
+    """What the `crc` loop's live prefix keeps on its device, made once a
+    decode (`live_prefix`): its working set's first state[0] columns hold
+    the codewords not done yet, column j codeword col[j].
+
+    synd (B,) int32: the syndromes `live_syndromes` leaves for
+    `retire_outputs` and `live_compact` (zero between iterations); state
+    (3,) int32: the live count n, then the last close's retired columns and
+    moves; lists (2, B) int32: the moves' sources and holes (their first
+    state[2] entries); col (B,) int32."""
+    synd: torch.Tensor
+    state: torch.Tensor
+    lists: torch.Tensor
+    col: torch.Tensor
+
+
+def live_prefix(B: int, dev: torch.device) -> LivePrefix:
+    """Every codeword live, in its own column.  Made on the device alone
+    (a copy from pageable host memory would wait for the stream)."""
+    i32 = torch.int32
+    state = torch.zeros((3,), dtype=i32, device=dev)
+    state[0] = B
+    return LivePrefix(torch.zeros((B,), dtype=i32, device=dev), state,
+                      torch.zeros((2, B), dtype=i32, device=dev),
+                      torch.arange(B, dtype=i32, device=dev))
+
+
+def live_syndromes_plain(ls1, le1_new, le21_nat, K: int, deq: float,
+                         ext: torch.dtype, poly: int, live: LivePrefix):
+    """Plain version of `live_syndromes`."""
+    n = int(live.state[0])
+    hard = full_llr(ls1[:, :n], le1_new[:, :n], le21_nat[:, :n], K, deq,
+                    ext) < 0
+    live.synd[:n] = _syndromes(hard, K, poly)
+
+
+def live_syndromes(ls1, le1_new, le21_nat, K: int, deq: float,
+                   ext: torch.dtype, poly: int, live: LivePrefix, N: int):
+    """The CRC syndromes of the live prefix's codewords into live.synd:
+    column j < n (n = live.state[0] when the call runs) gets the syndrome
+    of hard = (ls1 + deq * (le1_new + le21_nat) < 0) on rows [0, K), as
+    `crc_exit` forms it, bit i of the syndrome at bit i.
+
+    ls1: the (KTp, B) working channel stream; le1_new, le21_nat: this
+    iteration's (KTp, B) le1 and its le21 in natural order, of type `ext`
+    (float8 as its bytes).  N: a bound of n known on the host, the columns
+    the card's grid spans.  One `exit_kernel` launch on the card."""
+    B = ls1.shape[1]
+    _check_iteration(ls1, K, ext, True, le1_new=le1_new,
+                     le21_nat=le21_nat)
+    _check_live(live, B, ls1.device, N)
+    dev = ls1.device
+    if dev.type == "cpu":
+        return live_syndromes_plain(ls1, le1_new, le21_nat, K, deq, ext,
+                                    poly, live)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _syndromes_launch(ls1.contiguous(), le1_new, le21_nat,
+                      _masks_on(K, poly, dev), K, deq, ext, live, N)
+
+
+def _syndromes_launch(ls1, le1_new, le21_nat, masks, K: int, deq: float,
+                      ext: torch.dtype, live: LivePrefix, N: int):
+    """The one launch of `live_syndromes` on contiguous tensors."""
+    T, B = ls1.shape
+    rc = launch_on(ls1.device.index, _EXIT,
+                   ls1.data_ptr(), le1_new.data_ptr(), le21_nat.data_ptr(),
+                   0, 0, 0, 0, 0, masks.data_ptr(), live.synd.data_ptr(), 0,
+                   B, K, T, _build.f64_bits(deq), _CHAN_TYPES[ls1.dtype],
+                   _EXT_TYPES[ext], live.state.data_ptr(), N,
+                   count=("exit_kernel",))
+    if rc != 0:
+        raise RuntimeError(f"live_syndromes launch failed: cudaError {rc} "
+                           f"(B={B}, N={N}, K={K}, KTp={T}, {ls1.dtype}, "
+                           f"{ext})")
+
+
+def _check_iteration(ls1, K: int, ext: torch.dtype, contiguous: bool,
+                     **streams):
+    """Check one iteration's (KTp, B) channel stream ls1 and its extrinsic
+    streams of type `ext` (float8 as its bytes), by name, contiguous where
+    asked."""
+    T, B = ls1.shape
+    if K <= 0 or T < K + 3:
+        raise ValueError(f"streams of {T} rows cannot hold K={K} and a tail")
+    if ls1.dtype not in _CHAN_TYPES:
+        raise ValueError(f"unsupported channel stream type {ls1.dtype}")
+    if ext not in _EXT_TYPES:
+        raise ValueError(f"unsupported extrinsic type {ext}")
+    for name, x in streams.items():
+        if (tuple(x.shape) != (T, B) or x.element_size() != ext.itemsize
+                or x.device != ls1.device
+                or (contiguous and not x.is_contiguous())):
+            raise ValueError(f"{name} must be "
+                             f"{'contiguous ' if contiguous else ''}"
+                             f"{(T, B)} of {ext} on {ls1.device}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _check_live(live: LivePrefix, B: int, dev: torch.device,
+                N: int | None = None):
+    """Check a `LivePrefix` of B columns on dev, and N, the host's bound of
+    its count, where given."""
+    if N is not None and not 1 <= N <= B:
+        raise ValueError(f"N must be in [1, {B}], got {N}")
+    for name, x, shape in (("synd", live.synd, (B,)),
+                           ("state", live.state, (3,)),
+                           ("lists", live.lists, (2, B)),
+                           ("col", live.col, (B,))):
+        if (x.dtype != torch.int32 or tuple(x.shape) != shape
+                or x.device != dev or not x.is_contiguous()):
+            raise ValueError(f"live.{name} must be contiguous int32 {shape} "
+                             f"on {dev} (live_prefix)")
+
+
+def retire_outputs_plain(hard, L, ls1, le1_new, le21_nat, K: int,
+                         deq: float, ext: torch.dtype, live: LivePrefix,
+                         last: bool):
+    """Plain version of `retire_outputs`."""
+    n = int(live.state[0])
+    j = ((live.synd[:n] == 0) | last).nonzero()[:, 0]
+    c = live.col[j].to(torch.long)
+    Lj = full_llr(ls1[:, j], le1_new[:, j], le21_nat[:, j], K, deq, ext)
+    L[c] = Lj.T
+    hard[c] = (Lj < 0).T.to(torch.int8)
+
+
+def retire_outputs(hard, L, ls1, le1_new, le21_nat, K: int, deq: float,
+                   ext: torch.dtype, live: LivePrefix, N: int, last: bool):
+    """The outputs of the live prefix's codewords that retire now, after
+    `live_syndromes`: for each working column j < n (n = live.state[0])
+    whose syndrome is 0, or every one when `last`, rows col[j] of hard
+    (B, K) int8 and L (B, K) fp32 get `assemble_outputs`' bytes for that
+    column: L = ls1 + deq * (le1_new + le21_nat) on rows [0, K), in fp32 and
+    in that order, and hard = (L < 0).  Other rows are not written.
+
+    ls1: the (KTp, B) working channel stream; le1_new, le21_nat: this
+    iteration's le1 and its le21 in natural order, (KTp, B) of type `ext`
+    (float8 as its bytes).  N: a bound of n known on the host, the columns
+    the card's grid spans.  One `unpack_kernel` launch on the card."""
+    B = ls1.shape[1]
+    _check_iteration(ls1, K, ext, True, le1_new=le1_new,
+                     le21_nat=le21_nat)
+    for name, x, dt in (("hard", hard, torch.int8), ("L", L, _F32)):
+        if (x.dtype != dt or tuple(x.shape) != (B, K)
+                or x.device != ls1.device or not x.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous ({B}, {K}) {dt} on "
+                             f"{ls1.device}")
+    _check_live(live, B, ls1.device, N)
+    dev = ls1.device
+    if dev.type == "cpu":
+        return retire_outputs_plain(hard, L, ls1, le1_new, le21_nat, K, deq,
+                                    ext, live, last)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _retire_launch(hard, L, ls1.contiguous(), le1_new, le21_nat, K, deq, ext,
+                   live, N, last)
+
+
+def _retire_launch(hard, L, ls1, le1_new, le21_nat, K: int, deq: float,
+                   ext: torch.dtype, live: LivePrefix, N: int, last: bool):
+    """The one launch of `retire_outputs` on contiguous tensors."""
+    B = ls1.shape[1]
+    rc = launch_on(ls1.device.index, _ASSEMBLE,
+                   *(x.data_ptr() for x in (ls1, le1_new, le21_nat, L, hard)),
+                   B, K, _build.f64_bits(deq), _CHAN_TYPES[ls1.dtype],
+                   _EXT_TYPES[ext],
+                   *(x.data_ptr() for x in (live.synd, live.col, live.state)),
+                   int(last), N, count=("unpack_kernel",))
+    if rc != 0:
+        raise RuntimeError(f"retire_outputs launch failed: cudaError {rc} "
+                           f"(B={B}, N={N}, K={K}, {ls1.dtype}, {ext})")
+
+
+def live_compact_plain(done, iters, live: LivePrefix, moved, last: bool):
+    """Plain version of `live_compact`."""
+    n = int(live.state[0])
+    col = live.col[:n].to(torch.long)
+    ok = live.synd[:n] == 0
+    iters[col] += 1
+    done[col] = ok
+    retire = ok | last
+    stay = n - int(retire.sum())
+    holes = retire[:stay].nonzero()[:, 0]
+    srcs = stay + (~retire[stay:]).nonzero()[:, 0]
+    for x in moved:
+        if x is not None:
+            x[..., holes] = x[..., srcs]
+    m = len(holes)
+    live.lists[0, :m] = srcs.to(torch.int32)
+    live.lists[1, :m] = holes.to(torch.int32)
+    live.col[holes] = live.col[srcs]
+    live.synd[:n] = 0
+    live.state.copy_(torch.tensor([stay, n - stay, m], dtype=torch.int32))
+
+
+def live_compact(done, iters, live: LivePrefix, moved, last: bool):
+    """Close one iteration of the live prefix, after `live_syndromes` (and
+    `retire_outputs`): for each column j < n (n = live.state[0]),
+    iters[col[j]] += 1 and done[col[j]] = (its syndrome is 0); column j
+    retires where it passed, or everywhere when `last`.  The n' columns
+    that stay fill the prefix: the k-th retired column below n' takes the
+    k-th staying column from n' up, in every array of `moved` and in col.
+    Afterwards state is (n', retired, moves), lists holds the moves
+    (sources, holes) and synd is zero.
+
+    done (B,) bool and iters (B,) int32 in the codewords' order; moved:
+    (ls1, lp1, ls2, lp2, le21, ck1, ck2), the working set, all with pitch
+    B: the four (KTp, B) channel streams, the (KTp, B) carried extrinsic
+    (le21 itself, or le2 raw) and the two (n_win, 8, B) fp32 window tables
+    (None, None in the exact contract).  On the card two launches,
+    `live_close_kernel` and `compact_kernel`; nothing is allocated and the
+    host reads nothing."""
+    B = done.shape[0]
+    dev = done.device
+    if (done.dtype != torch.bool or iters.dtype != torch.int32
+            or tuple(iters.shape) != (B,) or done.dim() != 1):
+        raise ValueError(f"done and iters must be ({B},) bool and int32")
+    _check_live(live, B, dev)
+    ls1, lp1, ls2, lp2, le21, ck1, ck2 = moved
+    T = ls1.shape[0]
+    for name, x in (("ls1", ls1), ("lp1", lp1), ("ls2", ls2), ("lp2", lp2),
+                    ("le21", le21)):
+        if (tuple(x.shape) != (T, B) or x.device != dev
+                or not x.is_contiguous()
+                or (name != "le21" and x.dtype != ls1.dtype)):
+            raise ValueError(f"{name} must be a contiguous {(T, B)} stream "
+                             f"on {dev}")
+    if (ck1 is None) != (ck2 is None):
+        raise ValueError("the window tables come as a pair")
+    for name, x in (("ck1", ck1), ("ck2", ck2)):
+        if x is not None and (x.dtype != _F32 or x.dim() != 3
+                              or x.shape[1:] != (8, B) or x.device != dev
+                              or x.shape != ck1.shape
+                              or not x.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous (n_win, 8, {B}) "
+                             f"fp32 window table on {dev}")
+    if dev.type == "cpu":
+        return live_compact_plain(done, iters, live, moved, last)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _compact_launch(done, iters, live, moved, last)
+
+
+def _compact_launch(done, iters, live: LivePrefix, moved, last: bool):
+    """The two launches of `live_compact` on contiguous tensors."""
+    B = done.shape[0]
+    ls1, lp1, ls2, lp2, le21, ck1, ck2 = moved
+    T = ls1.shape[0]
+    rc = launch_on(done.device.index, _COMPACT,
+                   *(x.data_ptr() for x in (done, iters, live.col, live.synd,
+                                            live.state, live.lists)),
+                   B, int(last), *(x.data_ptr() for x in (ls1, lp1, ls2, lp2)),
+                   T, ls1.element_size(), le21.data_ptr(), le21.element_size(),
+                   *((ck1.data_ptr(), ck2.data_ptr(), ck1.shape[0] * 8)
+                     if ck1 is not None else (0, 0, 0)),
+                   count=("live_close_kernel", "compact_kernel"))
+    if rc != 0:
+        raise RuntimeError(f"live_compact launch failed: cudaError {rc} "
+                           f"(B={B}, KTp={T})")

@@ -24,10 +24,20 @@ for the outputs, plus one per iteration where early termination needs the
 natural order for its check.  For a mixed-K batch or the exact contract the
 option is ignored and the materialised gathers run, as in the JAX package.
 
-The early-terminated loop (crc, sign) reads "every codeword done" on the
-host once per iteration, where the reference's `lax.while_loop` stays on the
+The early-terminated loops read on the host once per iteration whether
+every codeword is done, where the reference's `lax.while_loop` stays on the
 device; the next iteration's first SISO call is launched before the host
-waits for the read, so the card does not idle at it (see the loop).
+waits for the read, so the card does not idle at it (see the loops).  A
+`crc` decode with a shared table keeps the codewords not yet done in a
+dense prefix of its working set (layout.py's `LivePrefix`): after each
+iteration's syndromes the codewords done leave it, writing their hard bits
+and L into their own rows (range `turbo.unpack`), and the others move into
+the holes (range `turbo.compact`), so both SISO calls run over the live
+columns alone.  The per-codeword form and `sign` keep the loop that runs
+every codeword for every iteration and freezes the done ones' extrinsics.
+Each SISO call counts in `_device.LAUNCHES` the columns its grid spanned,
+`siso_columns.run`, beside the B that the freezing loop runs,
+`siso_columns.full`.
 Extrinsic streams of type float8_e4m3fn are carried as their bytes (uint8).
 """
 
@@ -37,10 +47,12 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from .. import _device
 from ..siso.cuda_kernel import (FP8, _round_up, kernel_name, siso_cells,
                                 window_len)
 from .layout import (assemble_outputs, crc_exit, crc_exit_scratch, full_llr,
-                     pack_streams)
+                     live_compact, live_prefix, live_syndromes, pack_streams,
+                     retire_outputs)
 from .turbo import DecoderConfig
 
 _STREAM_TYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -159,44 +171,60 @@ def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
         le, ck = out if nii else (out, None)
         return le.view(dtc), ck
 
+    # The live prefix (crc, shared table): the card's live count and the
+    # newest bound of it the host has read; None runs every column.
+    live = None
+
     def siso(ls_, lp_, la, ck=None, idx=None):
         """One SISO call on a carried stream."""
+        _device.LAUNCHES["siso_columns.run"] += live[1] if live else B
+        _device.LAUNCHES["siso_columns.full"] += B
         return carried(siso_cells(ls_, lp_, la.view(dte), K, cfg.mode, scale,
                                   nii_ckpt=ck, window=W, ext_qscale=qs,
-                                  gather_idx=idx), ck is not None)
+                                  gather_idx=idx, live=live), ck is not None)
 
     def siso1(le21, ck1):
         """SISO1 on the carry: (le1, its window table or None)."""
         with record_function("turbo.siso1"):
             return siso(ls1, lp1s, le21, ck1, inv_i if fold else None)
 
-    def half_iters_fold(le2, ck1, ck2, first=None):
-        le1, ck1 = first or siso1(le2, ck1)
-        with record_function("turbo.siso2"):
-            le2, ck2 = siso(ls2, lp2s, le1, ck2, perm_i)
-        return le2, le1, ck1, ck2
-
-    def half_iters(le21, ck1, ck2, first=None):
-        """The two SISO half-iterations + extrinsic interleave gathers --
-        the only per-iteration work that is algorithmically required.
-        first: SISO1's result when it was launched already, or None."""
+    # The two SISO half-iterations + extrinsic interleave gathers -- the
+    # only per-iteration work that is algorithmically required -- in two
+    # parts, so that a loop can launch the first part ahead of a read.
+    def front(le21, ck1, ck2, first=None):
+        """SISO1 on the carry (unless `first`, its result, was launched
+        already), the interleave and SISO2: (le2, le1, ck1, ck2), le2 in
+        interleaved order.  Under fold the carry is le2 raw and each SISO
+        reads the other's output through its own table."""
         # SISO1 (natural order); le21 rows >= K are garbage, masked in-kernel.
         # SISO2 (interleaved order): a-priori is scale*le1 gathered by perm;
         # the kernel applies the scaling, so the gather is a pure gather.
         le1, ck1 = first or siso1(le21, ck1)
+        if fold:
+            with record_function("turbo.siso2"):
+                le2, ck2 = siso(ls2, lp2s, le1, ck2, perm_i)
+            return le2, le1, ck1, ck2
         with record_function("turbo.gather_perm"):
             la2 = g_perm(le1)
         with record_function("turbo.siso2"):
             le2, ck2 = siso(ls2, lp2s, la2, ck2)
+        return le2, le1, ck1, ck2
+
+    def back(le2, le1, ck1, ck2):
+        """The iteration's carry: (le21, le1, ck1, ck2), le21 le2
+        de-interleaved, or le2 raw under fold."""
+        if fold:
+            return le2, le1, ck1, ck2
         with record_function("turbo.gather_inv"):
             return g_inv(le2), le1, ck1, ck2
+
+    def step(le21, ck1, ck2, first=None):
+        return back(*front(le21, ck1, ck2, first))
 
     # int8 extrinsics are stored as integer codes; dequantize (x qs) when
     # assembling the full LLR.  (Inside the kernel the dequant is folded
     # into the a-priori scale multiply.)
     deq = scale * (qs if qs else 1.0)
-
-    step = half_iters_fold if fold else half_iters
 
     def outputs(le21, le1, iters):
         # L and the hard bits are formed once, after the loop.  Under fold
@@ -215,6 +243,71 @@ def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
         return outputs(le21, le1, torch.full((B,), cfg.n_iters,
                                              dtype=torch.int32, device=dev))
 
+    crc = cfg.early_term == "crc"
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    iters = torch.zeros((B,), dtype=torch.int32, device=dev)
+    # The loops read the host's flag from pinned memory behind an event.
+    # A read that waited for the iteration to end would leave the card idle
+    # until the host had enqueued the next one.  So the next iteration's
+    # SISO1 (which reads only the carry; in the live prefix both SISO calls)
+    # is launched first, and only then does the host wait, for the event:
+    # the card runs it meanwhile.  If every codeword is done, what was
+    # launched ahead is dropped: in the freezing loop one SISO launch of the
+    # card's time is all it cost, in the live prefix blocks that return at
+    # once.
+    ready = torch.cuda.Event() if dev.type == "cuda" else None
+
+    def dropped(calls):
+        """Count SISO calls launched ahead of a read that ended the loop."""
+        if calls and ready is not None:
+            name = kernel_name(cfg.nii, cfg.mode, fold, False, dt, dte)
+            DROPPED[name] = DROPPED.get(name, 0) + calls
+
+    if crc and shared and B:
+        # The live prefix.  The working set (the channel streams, the carry
+        # and the window tables, all of pitch B) keeps the codewords not
+        # yet done in its first n columns, n on the card; the host sizes
+        # each grid by the newest n it has read, an upper bound since the
+        # prefix only shrinks, and every kernel stops at the card's n.  So
+        # both SISO calls of the next iteration are launched before the host
+        # reads the count that this iteration's close leaves, and run on it:
+        # the card has a whole iteration queued while the host waits.  A
+        # codeword's outputs are written when it retires.
+        lv = live_prefix(B, dev)
+        live = (lv.state[:1], B)
+        hard = torch.empty((B, K), dtype=torch.int8, device=dev)
+        L = torch.empty((B, K), dtype=f32, device=dev)
+        n_host = torch.zeros((1,), dtype=torch.int32,
+                             pin_memory=dev.type == "cuda")
+        ahead = front(zT, zC, zC)
+        for it in range(cfg.n_iters):
+            le21, le1, ck1, ck2 = back(*ahead)
+            last = it + 1 == cfg.n_iters      # every codeword retires
+            with record_function("turbo.early_exit"):
+                le21_nat = g_inv(le21) if fold else le21
+                live_syndromes(ls1, le1, le21_nat, K, deq, dte, cfg.crc_poly,
+                               lv, live[1])
+            with record_function("turbo.unpack"):
+                retire_outputs(hard, L, ls1, le1, le21_nat, K, deq, dte, lv,
+                               live[1], last)
+            with record_function("turbo.compact"):
+                live_compact(done, iters, lv,
+                             (ls1, lp1s, ls2, lp2s, le21, ck1, ck2), last)
+                n_host.copy_(lv.state[:1], non_blocking=True)
+                if ready is not None:
+                    ready.record()
+            ahead = (front(le21, ck1, ck2) if it + 1 < cfg.n_iters
+                     else None)
+            with record_function("turbo.exit_read"):
+                if ready is not None:
+                    ready.synchronize()
+                n = int(n_host[0])
+            if n == 0:
+                dropped(2 if ahead else 0)
+                break
+            live = (lv.state[:1], n)
+        return hard, iters, L
+
     # Early-termination freezing works on the EXTRINSICS, not on stored
     # L/hard copies: L = ls + deq*(le1 + le21) is a pure function of the
     # extrinsic streams, so pinning a converged frame's le1/le21 yields the
@@ -223,24 +316,13 @@ def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
     # CRC mode does not (the syndrome is memoryless), and its verdicts and
     # freezes are one pass (layout.crc_exit: two launches on the card,
     # which write the iteration's new buffers in place).
-    crc = cfg.early_term == "crc"
     scratch = crc_exit_scratch(B, dev) if crc else None
     le21, le1, ck1, ck2 = zT, zT, zC, zC
     hard_prev = torch.zeros((K, B), dtype=torch.int8, device=dev) \
         if cfg.early_term == "sign" else None
-    done = torch.zeros((B,), dtype=torch.bool, device=dev)
-    iters = torch.zeros((B,), dtype=torch.int32, device=dev)
-    # Exits as soon as every codeword passes: one host read per iteration,
-    # where the reference's lax.while_loop stays on the device.  A read that
-    # waited for the iteration to end would leave the card idle until the
-    # host had enqueued the next one.  So the flag is copied into pinned
-    # memory behind an event, the next iteration's SISO1 (which reads only
-    # the frozen carry) is launched, and only then does the host wait, for
-    # the event: the card runs SISO1 meanwhile.  If every codeword is done,
-    # that SISO1 is dropped: the outputs are those of the iteration before,
-    # and one SISO call of the card's time is all it cost.
+    # Exits as soon as every codeword passes; the outputs are those of the
+    # iteration before a dropped SISO1.
     flag = torch.zeros((), dtype=torch.bool, pin_memory=dev.type == "cuda")
-    ready = torch.cuda.Event() if dev.type == "cuda" else None
     first = None
     for it in range(cfg.n_iters):
         le21_new, le1_new, ck1, ck2 = step(le21, ck1, ck2, first)
@@ -276,8 +358,6 @@ def turbo_decode_cells(ls: torch.Tensor, lp1: torch.Tensor, lp2: torch.Tensor,
                 ready.synchronize()
             all_done = bool(flag)
         if all_done:
-            if first is not None and ready is not None:
-                name = kernel_name(cfg.nii, cfg.mode, fold, False, dt, dte)
-                DROPPED[name] = DROPPED.get(name, 0) + 1
+            dropped(1 if first else 0)
             break
     return outputs(le21, le1, iters)

@@ -362,10 +362,10 @@ def build_targets() -> list[_build.Target]:
 def _entry(mode: str, chan: torch.dtype, ext: torch.dtype,
            fold: bool = False, bnd: bool = False) -> _build.PackedEntry:
     """The C entry of one variant (`turbotpu_siso_launch`: one pointer to
-    25 int64 arguments, the stream last)."""
+    27 int64 arguments, the stream last)."""
     return _build.PackedEntry(
         _target(_MODE_CODES[mode], _CHAN_TYPES[chan], _EXT_TYPES[ext], fold,
-                bnd), "turbotpu_siso_launch", 25)
+                bnd), "turbotpu_siso_launch", 27)
 
 
 PASS1, PASS2 = 1, 2   # the `passes` of the C entry: one of them, or both
@@ -390,11 +390,12 @@ def _ptr(t):
 
 
 def _launcher(ls, lp, la, ain, K_real, W, eff, inv_q, mode, idx=None,
-              edges=None, row_offset=0, edges_out=None):
+              edges=None, row_offset=0, edges_out=None, live=None):
     """Allocate the outputs and scratch of one call of the NII (ain given;
     with idx its folded form) or exact (ain None) kernel of `mode` on CUDA
     tensors; with edges = (a_in, b_in) its boundary form, which writes its
-    outgoing edges into edges_out where given.  Returns (run, outputs):
+    outgoing edges into edges_out where given; with live = (count, N) the
+    first count columns alone, on a grid of N.  Returns (run, outputs):
     run(passes, count=()) launches the passes on them, counted under the
     names in `count` (`launch_on`), and raises if a launch fails; outputs
     is (le, aout, a_edge, b_edge) as _siso_plain returns them."""
@@ -416,7 +417,8 @@ def _launcher(ls, lp, la, ain, K_real, W, eff, inv_q, mode, idx=None,
     tail = (*((edges[0].data_ptr(), edges[1].data_ptr(), a_edge.data_ptr(),
                b_edge.data_ptr()) if bnd else (0,) * 4),
             row_offset, B, K_real, n_win, Wk, _build.f64_bits(eff),
-            _build.f64_bits(inv_q))
+            _build.f64_bits(inv_q),
+            *((live[0].data_ptr(), live[1]) if live is not None else (0, B)))
 
     def run(passes, count=()):
         # ck is read here, so it lives as long as run: it is no output
@@ -426,7 +428,8 @@ def _launcher(ls, lp, la, ain, K_real, W, eff, inv_q, mode, idx=None,
             raise RuntimeError(
                 f"siso kernel launch failed (passes {passes}): cudaError {rc} "
                 f"(T={T}, B={B}, W={W}, chan={ls.dtype}, ext={la.dtype}, "
-                f"nii={nii}, fold={fold}, boundary={bnd}, mode={mode})")
+                f"nii={nii}, fold={fold}, boundary={bnd}, mode={mode}, "
+                f"live={live and live[1]})")
     return run, (le, aout, a_edge, b_edge)
 
 
@@ -448,11 +451,12 @@ def pass_launchers(ls, lp, la, K_real: int, mode: str, scale: float = 1.0,
 
 def _operands(ls, lp, la, K_real, mode, scale=1.0, nii_ckpt=None, window=0,
               ext_qscale=0.0, gather_idx=None, boundaries=None,
-              nii_boundaries=None, row_offset=0, edges_out=None):
+              nii_boundaries=None, row_offset=0, edges_out=None, live=None):
     """Check the arguments of `siso_cells` and bring them to the kernel's
     form: (ls, lp, la, ain, K_real, W, eff, inv_q, mode, idx, edges,
-    row_offset, edges_out), the arguments of `_launcher` and `_siso_plain`'s
-    (with scale and ext_qscale in place of eff and inv_q)."""
+    row_offset, edges_out, live), the arguments of `_launcher` and
+    `_siso_plain`'s (with scale and ext_qscale in place of eff and
+    inv_q)."""
     if mode not in MODES:
         raise ValueError(f"unknown max* mode {mode!r}")
     if ls.dim() != 2 or lp.shape != ls.shape or la.shape != ls.shape:
@@ -514,6 +518,16 @@ def _operands(ls, lp, la, K_real, mode, scale=1.0, nii_ckpt=None, window=0,
                              f"got {gather_idx.dtype} "
                              f"{tuple(gather_idx.shape)}")
         tensors.append(gather_idx)
+    if live is not None:
+        count, width = live
+        if edges is not None:
+            raise ValueError("live has no boundary form")
+        if count.dtype != torch.int32 or count.numel() != 1:
+            raise ValueError(f"live's count must be one int32, got "
+                             f"{count.dtype} {tuple(count.shape)}")
+        if not 1 <= width <= B:
+            raise ValueError(f"live's bound must be in [1, {B}], got {width}")
+        tensors.append(count)
     if any(t.device != ls.device for t in tensors):
         raise ValueError("all tensors must lie on one device")
     if not all(t.is_contiguous() for t in tensors):
@@ -523,7 +537,7 @@ def _operands(ls, lp, la, K_real, mode, scale=1.0, nii_ckpt=None, window=0,
     eff = scale * (ext_qscale if ext_qscale else 1.0)
     inv_q = 1.0 / ext_qscale if ext_qscale else 1.0
     return (ls, lp, la, ain, K_real, W, eff, inv_q, mode, gather_idx, edges,
-            row_offset, edges_out)
+            row_offset, edges_out, live)
 
 
 def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
@@ -533,7 +547,7 @@ def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
                gather_idx: torch.Tensor | None = None,
                boundaries: tuple | None = None,
                nii_boundaries: tuple | None = None, row_offset: int = 0,
-               edges_out: tuple | None = None):
+               edges_out: tuple | None = None, live: tuple | None = None):
     """Kernel entry: raw LLR streams in, extrinsics out.
 
     ls/lp/la: contiguous (KTp, B) with KTp a multiple of the window; pad
@@ -578,11 +592,25 @@ def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
     into them, and they are what comes back; they must not overlap any
     other operand.  The sequence-sharded decoder passes views of K6's send
     buffers, so no copy is made before an exchange.
+
+    live: optional (count, N), without the boundary forms: count a
+    one-element int32 tensor on the streams' device, N an int in [1, B]
+    not below what count holds when the call runs.  The call decodes the
+    first count columns alone, on a grid that spans N; B stays the pitch
+    of every operand.  Those columns of le (and of the NII call's window
+    table) equal the same call's on the narrowed operands, byte for byte;
+    the others are left unwritten on the card and zero on the CPU.  The
+    count is read on the card when the call runs, so a decoder can launch
+    a call before the count it stops at is known on the host.
     """
     ops = _operands(ls, lp, la, K_real, mode, scale, nii_ckpt, window,
                     ext_qscale, gather_idx, boundaries, nii_boundaries,
-                    row_offset, edges_out)
+                    row_offset, edges_out, live)
     ain, W, edges = ops[3], ops[5], ops[10]
+    if ls.device.type == "cpu" and live is not None:
+        le, ck = _siso_plain_live(ls, lp, la, ain, K_real, W, scale,
+                                  ext_qscale, mode, gather_idx, live)
+        return le if nii_ckpt is None else (le, ck)
     if ls.device.type == "cpu":
         le, ck, a_edge, b_edge = _siso_plain(
             ls, lp, la, ain, K_real, W, scale, ext_qscale, mode, gather_idx,
@@ -601,6 +629,25 @@ def siso_cells(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
     if nii_boundaries is not None:
         return le, ck, a_edge, b_edge
     return le if nii_ckpt is None else (le, ck)
+
+
+def _siso_plain_live(ls, lp, la, ain, K_real, W, scale, ext_qscale, mode,
+                     gather_idx, live):
+    """`_siso_plain` on the first min(count, N) columns, written into
+    (KTp, B) outputs (and a (n_win, 8, B) window table) that are zero
+    elsewhere."""
+    n = min(int(live[0].reshape(())), live[1])
+    narrow = lambda x: None if x is None else x[..., :n].contiguous()
+    le_n, ck_n, _, _ = _siso_plain(narrow(ls), narrow(lp), narrow(la),
+                                   narrow(ain), K_real, W, scale, ext_qscale,
+                                   mode, gather_idx)
+    le = torch.zeros_like(la)
+    le[:, :n] = le_n
+    ck = None
+    if ain is not None:
+        ck = torch.zeros_like(ain)
+        ck[..., :n] = ck_n
+    return le, ck
 
 
 def siso_decode_cuda(ls: torch.Tensor, lp: torch.Tensor, la: torch.Tensor,
